@@ -1,6 +1,6 @@
-"""flashattn_tpu: a TPU-native (JAX/XLA/Pallas) framework with the
-capabilities of the reference CUDA/minitorch FlashAttention project
-(Yogesh352/llmsys-project-flashattn).
+"""flashattn_tpu: a JAX (XLA/Pallas) framework with the capabilities of the
+reference CUDA/minitorch FlashAttention project
+(Yogesh352/llmsys-project-flashattn), run on NVIDIA GPUs.
 
 Layer map (reference -> here, see SURVEY.md §1):
 
@@ -8,8 +8,10 @@ Layer map (reference -> here, see SURVEY.md §1):
 * L1 tensor_data          -> jax.Array / XLA layouts (no hand-rolled strides)
 * L2 ops backends         -> XLA under ``jax.jit`` + Pallas kernels in
                              :mod:`flashattn_tpu.ops`
-* L3 CUDA kernels         -> Pallas TPU kernels: flash attention, fused
-                             softmax, fused layernorm
+* L3 CUDA kernels         -> flash attention and paged decode as Pallas
+                             kernels compiled through Triton, cuDNN's
+                             fused attention; softmax, layernorm and
+                             dropout as XLA-fused ops
 * L4 Tensor/autodiff      -> jax.grad + jax.custom_vjp;
                              :mod:`flashattn_tpu.autodiff` for grad_check
 * L5 modules              -> :mod:`flashattn_tpu.module`, :mod:`...nn`
@@ -24,7 +26,7 @@ from . import operators
 from .module import Module, Parameter
 from .optim import SGD, Adafactor, Adam, AdamW
 from .nn import functional as F
-from .nn.basic import Dropout, Embedding, FusedLayerNorm, LayerNorm1d, Linear
+from .nn.basic import Dropout, Embedding, LayerNorm1d, Linear
 from .ops.flash_attention import (
     flash_attention,
     flash_attention_reference,
@@ -36,7 +38,7 @@ from .ops.dropout import (
     fused_dropout_res_bias,
 )
 from .ops.layernorm import layernorm, layernorm_reference
-from .ops.softmax import attn_softmax, attn_softmax_pallas, attn_softmax_reference
+from .ops.softmax import attn_softmax, attn_softmax_reference
 from .models.transformer import (
     DecoderLM,
     FeedForward,
@@ -63,7 +65,6 @@ __all__ = [
     "F",
     "Dropout",
     "Embedding",
-    "FusedLayerNorm",
     "LayerNorm1d",
     "Linear",
     "flash_attention",
@@ -72,7 +73,6 @@ __all__ = [
     "layernorm",
     "layernorm_reference",
     "attn_softmax",
-    "attn_softmax_pallas",
     "attn_softmax_reference",
     "DecoderLM",
     "FeedForward",

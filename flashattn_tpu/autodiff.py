@@ -3,7 +3,7 @@
 The reference implements a full tape-based autodiff engine
 (``minitorch/autodiff.py``: topological_sort:93, backpropagate:130) plus a
 central-difference checker run against a float64 torch forward
-(``tensor_functions.py:691-744``).  On TPU the engine itself *is*
+(``tensor_functions.py:691-744``).  In JAX the engine itself *is*
 ``jax.grad`` / ``jax.vjp``; what remains worth owning is the checker, which
 our kernel tests use exactly the way the reference's property tests use
 ``grad_check`` (tests/test_tensor_general.py).

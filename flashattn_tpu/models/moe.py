@@ -1,12 +1,12 @@
 """Mixture-of-Experts feed-forward (Switch/GShard-style) + expert parallelism.
 
 No reference equivalent (dense FFN only, modules_transfomer.py:233-276);
-this is the "ep" axis of the parallelism surface.  TPU-shaped design:
+this is the "ep" axis of the parallelism surface.  Design:
 
 * static shapes end to end: capacity-based dispatch (each expert processes
   at most ``capacity`` tokens per batch; overflow tokens fall through the
   residual connection, the standard Switch behaviour) — no sorting, no
-  dynamic gather; the dispatch/combine are one-hot einsums the MXU eats;
+  dynamic gather; the dispatch/combine are one-hot einsums (dense matmuls);
 * expert weights are stacked arrays ``(E, d, m)`` / ``(E, m, d)`` so the
   per-expert FFN is ONE batched matmul, and expert parallelism is just a
   sharding annotation ``P(expert_axis, None, None)`` — GSPMD inserts the
@@ -82,8 +82,9 @@ class MoEFeedForward(Module):
         e = self.n_experts
         cap = self._capacity(t)
 
-        # Router runs at HIGHEST matmul precision: TPU's default f32 matmul
-        # (bf16 passes) perturbs logits differently per batch shape, and a
+        # Router runs at HIGHEST matmul precision: the default f32 matmul
+        # may run in TF32 on a GPU (bf16 passes elsewhere), which perturbs
+        # logits differently per batch shape, and a
         # near-tie argmax flip between prefill and decode routes the same
         # token to a different expert — discrete, so the outputs diverge
         # wholesale, not by epsilon.  The router is (T, d)x(d, E): tiny.

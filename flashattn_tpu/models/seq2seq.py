@@ -3,8 +3,7 @@
 The reference ships only a decoder-only LM and runs machine translation by
 concatenating source+target into one causal stream
 (``modules_transfomer.py:365-470``, ``run_machine_translation.py:90-161``);
-its BASELINE north star nevertheless names "encoder-decoder and decoder-only
-blocks" as the model surface.  This module supplies the encoder-decoder half:
+this module supplies the encoder-decoder counterpart:
 
 * :class:`EncoderLayer` — pre-LN bidirectional self-attention block; padded
   source batches are masked *in-kernel* via the varlen flash attention
@@ -19,7 +18,7 @@ blocks" as the model surface.  This module supplies the encoder-decoder half:
   O(len^2) re-run loop lacks (run_machine_translation.py:300-323).
 
 All attention runs through :class:`MultiHeadAttention`, so the attn_impl
-dispatch ("flash" / "fused_softmax" / "reference"), GQA, and the TP sharding
+dispatch ("flash" / "cudnn" / "triton" / "fused_softmax" / "reference"), GQA, and the TP sharding
 suffix rules (q/k/v/out_projection) apply unchanged.
 """
 
@@ -31,16 +30,11 @@ import jax
 import jax.numpy as jnp
 
 from ..module import Module
-from ..nn.basic import Dropout, Embedding, FusedLayerNorm, LayerNorm1d, Linear
+from ..nn.basic import Dropout, Embedding, LayerNorm1d, Linear
 from .transformer import (AttnImpl, FeedForward, MultiHeadAttention, _split,
                           remat_policy)
 
 Array = jax.Array
-
-
-def _make_ln(n_embd, eps, fused, dtype):
-    return (FusedLayerNorm(n_embd, eps, dtype=dtype) if fused
-            else LayerNorm1d(n_embd, eps, dtype=dtype))
 
 
 class EncoderLayer(Module):
@@ -50,7 +44,6 @@ class EncoderLayer(Module):
                  ln_eps: float = 1e-5, bias: bool = True, *,
                  middle_dim: int = 256, n_kv_head: Optional[int] = None,
                  attn_impl: AttnImpl = "flash",
-                 use_fused_layernorm: bool = True,
                  key: jax.Array, dtype=jnp.float32):
         ka, kf = jax.random.split(key)
         self.attention = MultiHeadAttention(
@@ -58,8 +51,8 @@ class EncoderLayer(Module):
             n_kv_head=n_kv_head, attn_impl=attn_impl, key=ka, dtype=dtype)
         self.ff = FeedForward(n_embd, middle_dim, p_dropout, bias, key=kf,
                               dtype=dtype)
-        self.ln_1 = _make_ln(n_embd, ln_eps, use_fused_layernorm, dtype)
-        self.ln_2 = _make_ln(n_embd, ln_eps, use_fused_layernorm, dtype)
+        self.ln_1 = LayerNorm1d(n_embd, ln_eps, dtype=dtype)
+        self.ln_2 = LayerNorm1d(n_embd, ln_eps, dtype=dtype)
 
     def forward(self, x: Array, src_lens: Optional[Array] = None,
                 key: Optional[jax.Array] = None) -> Array:
@@ -76,7 +69,6 @@ class CrossDecoderLayer(Module):
                  ln_eps: float = 1e-5, bias: bool = True, *,
                  middle_dim: int = 256, n_kv_head: Optional[int] = None,
                  attn_impl: AttnImpl = "flash",
-                 use_fused_layernorm: bool = True,
                  key: jax.Array, dtype=jnp.float32):
         ks, kc, kf = jax.random.split(key, 3)
         self.attention = MultiHeadAttention(
@@ -87,9 +79,9 @@ class CrossDecoderLayer(Module):
             n_kv_head=n_kv_head, attn_impl=attn_impl, key=kc, dtype=dtype)
         self.ff = FeedForward(n_embd, middle_dim, p_dropout, bias, key=kf,
                               dtype=dtype)
-        self.ln_1 = _make_ln(n_embd, ln_eps, use_fused_layernorm, dtype)
-        self.ln_c = _make_ln(n_embd, ln_eps, use_fused_layernorm, dtype)
-        self.ln_2 = _make_ln(n_embd, ln_eps, use_fused_layernorm, dtype)
+        self.ln_1 = LayerNorm1d(n_embd, ln_eps, dtype=dtype)
+        self.ln_c = LayerNorm1d(n_embd, ln_eps, dtype=dtype)
+        self.ln_2 = LayerNorm1d(n_embd, ln_eps, dtype=dtype)
 
     def forward(self, x: Array, memory: Array,
                 memory_lens: Optional[Array] = None,
@@ -137,7 +129,6 @@ class EncoderDecoderLM(Module):
                  n_encoder_layer: int = 4, n_decoder_layer: int = 4,
                  middle_dim: int = 256, n_kv_head: Optional[int] = None,
                  attn_impl: AttnImpl = "flash",
-                 use_fused_layernorm: bool = True,
                  remat: bool = False, remat_policy: str = "nothing",
                  key: jax.Array, dtype=jnp.float32):
         self.n_embd = n_embd
@@ -156,7 +147,6 @@ class EncoderDecoderLM(Module):
             EncoderLayer(n_embd, n_head, p_dropout, ln_eps, bias,
                          middle_dim=middle_dim, n_kv_head=n_kv_head,
                          attn_impl=attn_impl,
-                         use_fused_layernorm=use_fused_layernorm,
                          key=keys[2 + i], dtype=dtype)
             for i in range(n_encoder_layer)
         ]
@@ -164,13 +154,12 @@ class EncoderDecoderLM(Module):
             CrossDecoderLayer(n_embd, n_head, p_dropout, ln_eps, bias,
                               middle_dim=middle_dim, n_kv_head=n_kv_head,
                               attn_impl=attn_impl,
-                              use_fused_layernorm=use_fused_layernorm,
-                              key=keys[2 + n_encoder_layer + i], dtype=dtype)
+                                   key=keys[2 + n_encoder_layer + i], dtype=dtype)
             for i in range(n_decoder_layer)
         ]
         self.dropout = Dropout(p_dropout)
-        self.ln_enc = _make_ln(n_embd, ln_eps, use_fused_layernorm, dtype)
-        self.ln = _make_ln(n_embd, ln_eps, use_fused_layernorm, dtype)
+        self.ln_enc = LayerNorm1d(n_embd, ln_eps, dtype=dtype)
+        self.ln = LayerNorm1d(n_embd, ln_eps, dtype=dtype)
         self.lm_head = Linear(n_embd, n_vocab, bias, key=keys[-1], dtype=dtype)
 
     def _embed(self, idx: Array, key) -> Array:

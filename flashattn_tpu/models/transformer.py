@@ -1,24 +1,24 @@
 """Decoder-only transformer model family.
 
-TPU-native equivalents of reference ``minitorch/modules_transfomer.py``:
+JAX equivalents of reference ``minitorch/modules_transfomer.py``:
 ``MultiHeadAttention:19-230``, ``FeedForward:233-276``,
 ``TransformerLayer:279-362``, ``DecoderLM:365-470``.
 
 Differences by design (documented against SURVEY.md §2 defect list):
 
-* One model definition, three attention paths selected by ``attn_impl``:
-  ``"flash"`` (Pallas flash-attention kernel), ``"fused_softmax"`` (op-graph
-  matmuls + Pallas fused masked softmax -- the reference's
-  ``use_fused_kernel`` path), and ``"reference"`` (pure jnp op-graph).  The
+* One model definition, its attention paths selected by ``attn_impl``:
+  ``"flash"`` (the flash-attention routes of ``ops/flash_attention.py``,
+  chosen per call by ``choose_impl``), ``"cudnn"`` or ``"triton"`` (one of
+  those routes, pinned), ``"fused_softmax"`` (op-graph matmuls + the masked
+  softmax op -- the reference's ``use_fused_kernel`` path), and
+  ``"reference"`` (pure jnp op-graph, for paged decode too).  The
   reference's mis-wired positional flag plumbing
   (modules_transfomer.py:309-311,409-420) is replaced by this single kwarg.
 * ``n_layer`` is a constructor argument (the reference hard-codes 4 layers).
 * Dropout consumes explicit PRNG keys; eval mode and ``key=None`` are
   deterministic.
 * The causal mask is generated in-kernel from iota, never materialised as a
-  (B,H,T,T) HBM tensor (reference modules_transfomer.py:63-71).
-* Weight layouts are MXU-friendly: QKV projections can run as one fused
-  (n_embd, 3*n_embd) matmul.
+  (B,H,T,T) tensor in device memory (reference modules_transfomer.py:63-71).
 """
 
 from __future__ import annotations
@@ -31,7 +31,7 @@ import jax.numpy as jnp
 
 from ..module import Module
 from ..nn import functional as F
-from ..nn.basic import Dropout, Embedding, FusedLayerNorm, LayerNorm1d, Linear
+from ..nn.basic import Dropout, Embedding, LayerNorm1d, Linear
 from ..ops.flash_attention import (
     flash_attention,
     flash_attention_reference,
@@ -43,7 +43,7 @@ from ..ops.softmax import attn_softmax
 
 Array = jax.Array
 
-AttnImpl = Literal["flash", "fused_softmax", "reference"]
+AttnImpl = Literal["flash", "cudnn", "triton", "fused_softmax", "reference"]
 
 
 def _quantize_kv(t, dtype):
@@ -70,7 +70,7 @@ def remat_policy(name: Optional[str]):
     ``"nothing"`` rematerialises every layer intermediate in the backward
     pass (max memory saving, ~1.33x forward flops); ``"dots"`` saves matmul
     outputs that have no batch dim (weight-stationary products) and
-    recomputes the rest -- the usual TPU sweet spot when HBM allows.
+    recomputes the rest.
     """
     if name in (None, "nothing", "none"):
         return None  # jax.checkpoint default: save only the layer inputs
@@ -115,11 +115,12 @@ class MultiHeadAttention(Module):
         # model (learned absolute embeddings, the reference's scheme).
         self.pos_encoding = pos_encoding
         self.rope_theta = rope_theta
-        # Multi-chip wiring (static): set via parallel.sharding.apply_mesh.
-        # GSPMD cannot partition pallas_call, so the flash path switches to
-        # the shard_map shim when a mesh is attached.  mesh_seq_axis selects
-        # sequence/context parallelism: activations sharded over the
-        # sequence dim, attention via the differentiable ring (ppermute).
+        # Multi-device wiring (static): set via parallel.sharding.apply_mesh.
+        # GSPMD cannot partition pallas_call or cuDNN's custom call, so the
+        # flash path switches to the shard_map shim when a mesh is
+        # attached.  mesh_seq_axis selects sequence/context parallelism:
+        # activations sharded over the sequence dim, attention via the
+        # differentiable ring (ppermute).
         self.mesh = None
         self.mesh_batch_axis = None
         self.mesh_head_axis = None
@@ -131,6 +132,20 @@ class MultiHeadAttention(Module):
         self.v_projection = Linear(n_embd, kv_dim, bias, key=kv, dtype=dtype)
         self.out_projection = Linear(n_embd, n_embd, bias, key=ko, dtype=dtype)
         self.dropout = Dropout(p_dropout)
+
+    @property
+    def _flash_route(self) -> str:
+        """The ``impl`` of the flash-attention calls: "flash" (and the
+        engine's prefill under "fused_softmax") lets ``choose_impl`` pick."""
+        return ("auto" if self.attn_impl in ("flash", "fused_softmax")
+                else self.attn_impl)
+
+    @property
+    def _paged_route(self) -> str:
+        """The ``impl`` of the paged-decode calls: the Triton kernel or the
+        XLA gather when pinned, else ``choose_paged_impl``'s pick."""
+        return (self.attn_impl if self.attn_impl in ("triton", "reference")
+                else "auto")
 
     def project_to_query_key_value(self, x: Array, kv_src: Optional[Array] = None):
         """(B,S,E) -> q (B,nh,S,hd), k/v (B,n_kv_head,Skv,hd)
@@ -169,7 +184,7 @@ class MultiHeadAttention(Module):
         reference's padding-mask add, softmax_kernel.cu:232-292).
         """
         bs, nh, seq, hd = q.shape
-        if self.attn_impl == "flash":
+        if self.attn_impl in ("flash", "cudnn", "triton"):
             if (self.mesh is not None and self.mesh_seq_axis is not None
                     and self.mesh_seq_axis in self.mesh.axis_names):
                 # SP/context parallelism: the differentiable ring.  Axes the
@@ -205,9 +220,11 @@ class MultiHeadAttention(Module):
                 )
             elif kv_lengths is not None:
                 out = flash_attention_varlen(q, k, v, kv_lengths, self.causal,
+                                             impl=self._flash_route,
                                              window=self.window)
             else:
                 out = flash_attention(q, k, v, self.causal,
+                                      impl=self._flash_route,
                                       window=self.window)
         elif self.attn_impl == "fused_softmax":
             k, v = repeat_kv(k, v, q.shape[1])
@@ -247,8 +264,8 @@ class MultiHeadAttention(Module):
     # -- KV-cached decode path ---------------------------------------------
     # The reference's generate() re-runs the whole model per new token
     # (run_machine_translation.py:300-323, "no KV cache" -- O(len^2) model
-    # invocations).  TPU-native serving keeps a static-shape cache updated
-    # with dynamic_update_slice so the decode step jits once.
+    # invocations).  Here a static-shape cache is updated with
+    # dynamic_update_slice so the decode step jits once.
 
     def init_cache(self, batch: int, max_len: int, dtype=jnp.float32) -> dict:
         shape = (batch, self.n_kv_head, max_len, self.attn_hidden_dim)
@@ -284,8 +301,7 @@ class MultiHeadAttention(Module):
     def init_page_pool(self, total_pages: int, page_size: int,
                        dtype=jnp.float32) -> dict:
         """Per-layer paged KV pool.  ``dtype`` of int8 / float8_e4m3fn builds
-        a QUANTIZED pool: payloads + per-token f32 scales (BASELINE
-        configs[3], "FP8/INT8 paged KV-cache")."""
+        a QUANTIZED pool: payloads + per-token f32 scales."""
         shape = (self.n_kv_head, total_pages, page_size, self.attn_hidden_dim)
         pool = {"k": jnp.zeros(shape, dtype), "v": jnp.zeros(shape, dtype)}
         if dtype in (jnp.int8, jnp.float8_e4m3fn):
@@ -340,8 +356,8 @@ class MultiHeadAttention(Module):
         # prefill attention: causal within the prompt, per-row valid prefix
         # (the cache holds nothing older, so attending q/k/v directly is
         # exact); fp-precision q/k/v regardless of pool quantisation.
-        # Under a mesh the Pallas kernel must run through shard_map (GSPMD
-        # cannot partition pallas_call).
+        # Under a mesh the kernels must run through shard_map (GSPMD cannot
+        # partition them).
         if self.mesh is not None:
             from ..parallel.sharded_attention import sharded_flash_attention
 
@@ -355,7 +371,7 @@ class MultiHeadAttention(Module):
             out = flash_attention_varlen(
                 q, k, v, prompt_lens, True,
                 1.0 / math.sqrt(self.attn_hidden_dim),
-                window=self.window)
+                impl=self._flash_route, window=self.window)
         out = out.transpose(0, 2, 1, 3).reshape(bs, seq, self.n_embd)
         return self.out_projection(out), pool
 
@@ -420,7 +436,8 @@ class MultiHeadAttention(Module):
                 mesh=self.mesh, head_axis=self.mesh_head_axis, **kwargs)
         else:
             out = paged_attention(qc, pool["k"], pool["v"], lengths + kk,
-                                  page_table, **kwargs)   # (B, k, nh, hd)
+                                  page_table, impl=self._paged_route,
+                                  **kwargs)   # (B, k, nh, hd)
         out = out.reshape(bs, kk, self.n_embd)
         return self.out_projection(out), pool
 
@@ -456,8 +473,6 @@ class TransformerLayer(Module):
     """Pre-LN transformer layer (reference :279-362).
 
     ln_1 -> causal MHA -> residual -> ln_2 -> FFN -> residual.
-    ``use_fused_layernorm`` picks the Pallas fused LN (reference's
-    FusedLayerNorm path) over the op-graph LayerNorm1d.
     """
 
     def __init__(self, n_embd: int, n_head: int, p_dropout: float = 0.1,
@@ -468,7 +483,6 @@ class TransformerLayer(Module):
                  pos_encoding: str = "none", rope_theta: float = 10000.0,
                  window: Optional[int] = None,
                  n_experts: Optional[int] = None, moe_top_k: int = 2,
-                 use_fused_layernorm: bool = True,
                  key: jax.Array, dtype=jnp.float32):
         ka, kf = jax.random.split(key)
         self.attention = MultiHeadAttention(
@@ -486,12 +500,8 @@ class TransformerLayer(Module):
         else:
             self.ff = FeedForward(n_embd, middle_dim, p_dropout, bias,
                                   key=kf, dtype=dtype)
-        if use_fused_layernorm:
-            self.ln_1 = FusedLayerNorm(n_embd, ln_eps, dtype=dtype)
-            self.ln_2 = FusedLayerNorm(n_embd, ln_eps, dtype=dtype)
-        else:
-            self.ln_1 = LayerNorm1d(n_embd, ln_eps, dtype=dtype)
-            self.ln_2 = LayerNorm1d(n_embd, ln_eps, dtype=dtype)
+        self.ln_1 = LayerNorm1d(n_embd, ln_eps, dtype=dtype)
+        self.ln_2 = LayerNorm1d(n_embd, ln_eps, dtype=dtype)
 
     def forward(self, x: Array, key: Optional[jax.Array] = None) -> Array:
         return self.forward_with_aux(x, key=key)[0]
@@ -555,7 +565,6 @@ class DecoderLM(Module):
                  pos_encoding: str = "learned", rope_theta: float = 10000.0,
                  window: Optional[int] = None,
                  n_experts: Optional[int] = None, moe_top_k: int = 2,
-                 use_fused_layernorm: bool = True,
                  remat: bool = False, remat_policy: str = "nothing",
                  key: jax.Array, dtype=jnp.float32):
         self.n_embd = n_embd
@@ -585,16 +594,12 @@ class DecoderLM(Module):
                 pos_encoding="rope" if pos_encoding == "rope" else "none",
                 rope_theta=rope_theta, window=window,
                 n_experts=n_experts, moe_top_k=moe_top_k,
-                use_fused_layernorm=use_fused_layernorm,
                 key=keys[2 + i], dtype=dtype,
             )
             for i in range(n_layer)
         ]
         self.dropout = Dropout(p_dropout)
-        if use_fused_layernorm:
-            self.ln = FusedLayerNorm(n_embd, ln_eps, dtype=dtype)
-        else:
-            self.ln = LayerNorm1d(n_embd, ln_eps, dtype=dtype)
+        self.ln = LayerNorm1d(n_embd, ln_eps, dtype=dtype)
         self.lm_head = Linear(n_embd, n_vocab, bias, key=keys[-1], dtype=dtype)
 
     def _embed(self, idx: Array, pos: Array) -> Array:
@@ -681,7 +686,11 @@ class DecoderLM(Module):
         bs, kk = tokens.shape
         pos = lengths.astype(jnp.int32)[:, None] + jnp.arange(
             kk, dtype=jnp.int32)[None]
-        x = self._embed(tokens, pos)
+        # the padding of a chunked-prefill wave may run past the position
+        # table; an out-of-range lookup fills NaN, and a NaN key or value
+        # written into a page poisons every later read of it (a masked
+        # score is zeroed, but 0 * NaN in the value product is not)
+        x = self._embed(tokens, jnp.minimum(pos, self.n_positions - 1))
         new_pools = []
         for layer, pool in zip(self.layers, pools):
             x, pool = layer.forward_extend_paged(x, pool, page_table, lengths)

@@ -1,6 +1,6 @@
 """Pytree-native Module system.
 
-TPU-first re-design of the reference's mutable ``Module``/``Parameter`` tree
+JAX re-design of the reference's mutable ``Module``/``Parameter`` tree
 (reference ``minitorch/module.py:6-166``).  The reference intercepts
 ``__setattr__`` to build a named parameter tree and mutates ``.value`` in the
 optimizer.  Under ``jax.jit`` mutation is a non-starter, so here a Module *is*

@@ -1,2 +1,2 @@
 from . import functional
-from .basic import Dropout, Embedding, FusedLayerNorm, LayerNorm1d, Linear
+from .basic import Dropout, Embedding, LayerNorm1d, Linear

@@ -1,12 +1,12 @@
 """Scalar math prelude + higher-order map/zipWith/reduce.
 
-TPU-native re-design of the reference's L0 layer (minitorch ``operators.py``,
+JAX re-design of the reference's L0 layer (minitorch ``operators.py``,
 see reference ``minitorch/operators.py:12-255``).  In the reference these pure-
 Python scalar functions are the atoms that every backend (SimpleOps / FastOps /
 CudaOps / CudaKernelOps) JIT-compiles or dispatches on via an ``fn_id`` table.
 
-On TPU the whole dispatch tier collapses: these are ordinary ``jnp`` functions
-that XLA traces, fuses and vectorises onto the VPU.  They exist (a) as the
+Under JAX the whole dispatch tier collapses: these are ordinary ``jnp``
+functions that XLA traces, fuses and vectorises.  They exist (a) as the
 shared vocabulary for the functional nn layer, (b) so property tests can run
 the same op-table-driven strategy the reference uses
 (``minitorch/testing.py``), and (c) to document the 1:1 parity mapping.
@@ -139,7 +139,7 @@ EPS = 1e-6
 # The reference hand-rolls map/zipWith/reduce over python lists and later
 # re-implements them as strided CUDA kernels (combine.cu:385-580).  Here they
 # are thin wrappers over jnp broadcasting -- under jit XLA fuses them away,
-# which *is* the TPU-native replacement for that whole kernel family.
+# which *is* the replacement for that whole kernel family.
 # ---------------------------------------------------------------------------
 
 

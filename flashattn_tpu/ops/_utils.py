@@ -2,28 +2,23 @@
 
 from __future__ import annotations
 
-import functools
-
 import jax
 import jax.numpy as jnp
 
 # Big-but-finite mask value: -inf produces NaNs in exp(-inf - (-inf)) during
-# online-softmax rescaling (see guide; reference uses -1e8 / -float_max).
+# online-softmax rescaling (the reference uses -1e8 / -float_max).
 DEFAULT_MASK_VALUE = -0.7 * float(jnp.finfo(jnp.float32).max)
 
-NUM_LANES = 128
-NUM_SUBLANES = 8
 
-
-@functools.cache
 def use_interpret_mode() -> bool:
-    """Run Pallas kernels in interpreter mode off-TPU (CPU tests / CI).
+    """Run Pallas kernels through the interpreter on the CPU, and only there.
 
     The reference gates CUDA tests on ``numba.cuda.is_available()``
-    (tests/test_flash_attention.py:16-21); our equivalent is: compile on TPU,
-    interpret everywhere else, same code path.
+    (tests/test_flash_attention.py:16-21).  Here the same kernel code is
+    compiled through Triton on a GPU and interpreted on the CPU, where the
+    tests run; no other backend takes a Pallas route.
     """
-    return jax.default_backend() not in ("tpu",)
+    return jax.default_backend() == "cpu"
 
 
 def cdiv(a: int, b: int) -> int:
@@ -32,23 +27,3 @@ def cdiv(a: int, b: int) -> int:
 
 def round_up(x: int, m: int) -> int:
     return ((x + m - 1) // m) * m
-
-
-def largest_divisor_block(n: int, target: int, minimum: int = 8) -> int | None:
-    """Largest block size <= target that divides n, or None."""
-    b = min(target, n)
-    while b >= minimum:
-        if n % b == 0:
-            return b
-        b //= 2
-    return None
-
-
-def ragged_row_block(n: int, target: int = 128) -> int:
-    """Row-block size for ROW-INDEPENDENT kernels: a multiple of the sublane
-    tile (Mosaic requires the second-to-last block dim divisible by 8 or equal
-    to the array dim), gridded with cdiv so the last block may be ragged.
-    Out-of-bounds rows read garbage and have their writes dropped — only safe
-    when rows don't interact; kernels that REDUCE over rows must mask the
-    ragged tail explicitly (see layernorm backward)."""
-    return min(target, round_up(n, NUM_SUBLANES))

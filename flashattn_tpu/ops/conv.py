@@ -1,13 +1,13 @@
 """conv1d / conv2d.
 
-TPU-native equivalent of reference ``minitorch/fast_conv.py`` (numba-jitted
+JAX equivalent of reference ``minitorch/fast_conv.py`` (numba-jitted
 ``_tensor_conv1d:27`` / ``_tensor_conv2d`` + ``Conv1dFun``/``Conv2dFun``).
 Semantics match the reference: correlation (no kernel flip), output the same
 spatial size as the input, kernel anchored at each position extending right/
 down, zero-padded past the edge.
 
-Implementation is ``lax.conv_general_dilated`` -- XLA lowers it onto the MXU
-as an implicit GEMM; autodiff comes from jax (the reference hand-writes the
+Implementation is ``lax.conv_general_dilated`` -- XLA lowers it to cuDNN or
+an implicit GEMM; autodiff comes from jax (the reference hand-writes the
 transposed conv in its backward).
 """
 

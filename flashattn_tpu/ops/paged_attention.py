@@ -1,279 +1,213 @@
-"""Paged attention: single-token decode over a paged KV-cache.
+"""Paged attention: decode over a paged KV-cache.
 
 Serving-path component with no reference equivalent (the reference's
 generation re-runs the full model per token, run_machine_translation.py:
-300-323); this is the TPU-native design from the guide (§8-13): the KV cache
-lives in non-contiguous fixed-size pages in HBM, each sequence owns a
-``page_indices`` row, and the kernel walks a sequence's pages with the
-online-softmax loop.
+300-323).  The KV cache lives in non-contiguous fixed-size pages, each
+sequence owns a row of a page table, and attention walks a sequence's pages
+with the online-softmax loop.
 
-Page gathering uses ``PrefetchScalarGridSpec``: the page table is a
-scalar-prefetch argument, so the K/V BlockSpec index maps *themselves* look
-up the physical page for each grid step -- Pallas's pipeline DMAs the right
-page while the previous one computes (double buffering for free).
+Two routes, chosen by :func:`choose_paged_impl`:
 
-Supports GQA (query-head groups per KV head) and int8-quantised pages
-(payload + per-token scales), halving page-load bandwidth.
+* ``"triton"`` -- a split-K decode kernel in Pallas, compiled through
+  Triton.  One program per (sequence, kv head, block of query rows, split
+  of the page table) reads its pages in place (a block of page ids from the table, then those
+  pages' K/V), keeps (m, l, acc) for all query heads of the kv head, and
+  the splits are merged by their log-sum-exp afterwards.  Decode sits far
+  below the card's ridge point, so the point is bytes: history pages are
+  read once, at their stored width (int8/fp8 pages are converted in
+  registers and their per-token scales applied after the dots).
+* ``"reference"`` -- the XLA gather: copy each sequence's pages into a dense
+  history, then attend; it writes the history once and reads it back.
+
+Both support GQA, int8/fp8 pages with per-token scales, a sliding
+``window`` and multi-token ``chunk`` queries.
 """
 
 from __future__ import annotations
 
 import functools
-from typing import Optional, Tuple
+from typing import Optional
 
 import jax
 import jax.numpy as jnp
+from jax import lax
 from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
+from jax.experimental.pallas import triton as plgpu
 
-from ._utils import use_interpret_mode
+from ._utils import DEFAULT_MASK_VALUE, cdiv, round_up, use_interpret_mode
 
 Array = jax.Array
 
 
-def _paged_kernel(pages_ref, lengths_ref,  # scalar prefetch
-                  q_ref, k_ref, v_ref, ks_ref, vs_ref,
-                  o_ref, m_scr, l_scr, acc_scr,
-                  *, page_size: int, quantized: bool,
-                  window: Optional[int] = None, chunk: int = 1):
-    """One grid step = one physical page x ALL kv heads.
+def _idiv(a, b):
+    """Integer division of traced int32 scalars (lax.div wants one dtype;
+    python ints and x64 mode would otherwise mix int32 and int64)."""
+    return lax.div(jnp.asarray(a, jnp.int32), jnp.asarray(b, jnp.int32))
 
-    Head-blocking matters: with grid (b, h, pages) each step DMAs one 32KB
-    page and does a (group, d)x(d, page) dot -- the per-step pipeline
-    overhead dominates and decode runs at ~13% of HBM bandwidth.  Folding the
-    head axis into the block (grid (b, pages), k block (H, page, d)) makes
-    every DMA H x bigger and every dot an H-batched MXU call.
+LOG2E = 1.4426950408889634
 
-    ``chunk`` > 1 = multi-token decode (speculative verification / chunked
-    prefill-extend): q carries ``group * chunk`` rows per kv head, ordered
-    (group, chunk); row j of a group sits at absolute position
-    ``lengths[b] - chunk + j`` and attends positions <= its own (causal
-    within the chunk).  ``lengths`` counts valid tokens INCLUDING the chunk
-    (whose K/V must already be scattered into the pages) — the same
-    convention the single-token callers use.
-    """
-    b = pl.program_id(0)
-    i = pl.program_id(1)
+PAGED_IMPLS = ("auto", "reference", "triton")
 
-    @pl.when(i == 0)
-    def _init():
-        m_scr[...] = jnp.full_like(m_scr, -jnp.inf)
-        l_scr[...] = jnp.zeros_like(l_scr)
-        acc_scr[...] = jnp.zeros_like(acc_scr)
+# Keys per loop step of the kernel: pages_per_block * page_size.
+_BLOCK_K = 128
+# Query rows (group * chunk) per program: decode fits one block; a
+# prefill-extend chunk spreads over several.
+_BLOCK_ROWS = 64
+# Programs to aim for (about four per SM of the card's 132): splitting the
+# page table that finely measured 18% faster at B16 and even at B4 than two
+# per SM (PERF.md).
+_TARGET_PROGRAMS = 528
 
-    length = lengths_ref[b]             # last row's exclusive KV bound
-    base = length - chunk               # tokens before the chunk
 
-    run = i * page_size < length
+def _is_pow2(n: int) -> bool:
+    return n > 0 and n & (n - 1) == 0
+
+
+def choose_paged_impl(q_head_dim: int, page_size: int, impl: str = "auto",
+                      platform: Optional[str] = None) -> str:
+    """The route of one paged call.  ``impl`` other than "auto" is honoured
+    as given.  "auto" takes the Triton kernel wherever its shapes allow --
+    on the GPU a power-of-two head dim >= 16 and page size, which the H100
+    measurements in PERF.md favour at every decode shape measured; on the
+    CPU, where the kernel runs through the Pallas interpreter, every shape
+    -- and the XLA gather otherwise.  The CPU default keeps the engine's
+    decode numerics independent of the chunk width (rows are padded to one
+    tile), which its equivalence tests rely on."""
+    if impl not in PAGED_IMPLS:
+        raise ValueError(f"impl must be one of {PAGED_IMPLS}, got {impl!r}")
+    if impl != "auto":
+        return impl
+    platform = platform or jax.default_backend()
+    if platform == "cpu":
+        return "triton"
+    if (platform == "gpu" and _is_pow2(q_head_dim) and q_head_dim >= 16
+            and _is_pow2(page_size)):
+        return "triton"
+    return "reference"
+
+
+def _paged_kernel(q_ref, k_ref, v_ref, ks_ref, vs_ref, table_ref, len_ref,
+                  o_ref, m_ref, l_ref, *, page_size, pages_per_block,
+                  cols_per_split, pages_per_seq, chunk, window):
+    row_block, split = pl.program_id(2), pl.program_id(3)
+    length = len_ref[0]
+    base = length - chunk            # tokens before the chunk
+    q = q_ref[...]                   # (rows, d), prescaled by scale*log2(e)
+    n_rows = q.shape[0]
+    bk = pages_per_block * page_size
+    rows = row_block * n_rows + jnp.arange(n_rows)
+    # rows are ordered (group, chunk): row r is chunk token r % chunk, at
+    # position base + r % chunk, attending positions < bound
+    bound = base + rows - _idiv(rows, chunk) * chunk + 1
+
+    n_cols = jnp.minimum(_idiv(jnp.max(bound) + page_size - 1, page_size),
+                         pages_per_seq)
+    c0 = split * cols_per_split
+    start = c0
     if window is not None:
-        # earliest row (j=0) attends positions >= base + 1 - window
-        run &= (i + 1) * page_size > base + 1 - window
+        first = _idiv(jnp.maximum(jnp.min(bound) - window, 0), page_size)
+        skip = jnp.maximum(first - c0, 0)
+        start = c0 + _idiv(skip, pages_per_block) * pages_per_block
+    stop = jnp.minimum(c0 + cols_per_split, n_cols)
+    n_blocks = jnp.maximum(_idiv(stop - start + pages_per_block - 1,
+                                   pages_per_block), 0)
 
-    @pl.when(run)
-    def _compute():
-        q = q_ref[0]                                  # (H, group*chunk, d)
-        k = k_ref[:, 0]                               # (H, page, d)
-        s = jax.lax.dot_general(
-            q, k.astype(q.dtype), (((2,), (2,)), ((0,), (0,))),
-            preferred_element_type=jnp.float32,
-        )                                             # (H, group*chunk, page)
-        if quantized:
-            ks = ks_ref[:, 0]                         # (H, page, 1)
-            s = s * ks.reshape(ks.shape[0], 1, -1)
-
-        pos = jax.lax.broadcasted_iota(jnp.int32, s.shape, 2) + i * page_size
-        # per-row causal bound: row (g, j) attends pos < base + j + 1
-        j = jax.lax.broadcasted_iota(jnp.int32, s.shape, 1) % chunk
-        keep = pos < base + j + 1
+    def body(t, carry):
+        acc, m, l = carry
+        col = start + t * pages_per_block
+        ids = table_ref[pl.ds(col, pages_per_block)]
+        k = k_ref[ids].reshape(bk, -1).astype(q.dtype)
+        v = v_ref[ids].reshape(bk, -1).astype(q.dtype)
+        s = pl.dot(q, k.T)
+        if ks_ref is not None:
+            s = s * ks_ref[ids].reshape(1, bk)
+        pos = col * page_size + jnp.arange(bk)
+        keep = pos[None, :] < bound[:, None]
         if window is not None:
-            keep &= pos >= base + j + 1 - window
-        s = jnp.where(keep, s, -1e30)
+            keep &= pos[None, :] >= bound[:, None] - window
+        s = jnp.where(keep, s, DEFAULT_MASK_VALUE)
+        m_new = jnp.maximum(m, jnp.max(s, axis=1))
+        alpha = jnp.exp2(m - m_new)
+        p = jnp.where(keep, jnp.exp2(s - m_new[:, None]), 0.0)
+        l = alpha * l + jnp.sum(p, axis=1)
+        if vs_ref is not None:
+            p = p * vs_ref[ids].reshape(1, bk)
+        acc = acc * alpha[:, None] + pl.dot(p.astype(v.dtype), v)
+        return acc, m_new, l
 
-        m_prev, l_prev = m_scr[...], l_scr[...]
-        m_curr = jnp.max(s, axis=-1, keepdims=True)
-        m_next = jnp.maximum(m_prev, m_curr)
-        alpha = jnp.exp2(m_prev - m_next)
-        p = jnp.exp2(s - m_next)
-        l_next = alpha * l_prev + jnp.sum(p, axis=-1, keepdims=True)
-        m_scr[...] = m_next
-        l_scr[...] = l_next
-
-        v = v_ref[:, 0]                               # (H, page, d)
-        if quantized:
-            vs = vs_ref[:, 0]                         # (H, page, 1)
-            p = p * vs.reshape(vs.shape[0], 1, -1)
-        pv = jax.lax.dot_general(
-            p.astype(q.dtype), v.astype(q.dtype),
-            (((2,), (1,)), ((0,), (0,))),
-            preferred_element_type=jnp.float32,
-        )                                             # (H, group, d)
-        acc_scr[...] = acc_scr[...] * alpha + pv
-
-    @pl.when(i == pl.num_programs(1) - 1)
-    def _finalize():
-        l = l_scr[...]
-        l_inv = jnp.where(l == 0.0, 1.0, 1.0 / l)
-        o_ref[0] = (acc_scr[...] * l_inv).astype(o_ref.dtype)
+    acc = jnp.zeros(q.shape, jnp.float32)
+    m = jnp.full((n_rows,), DEFAULT_MASK_VALUE, jnp.float32)
+    l = jnp.zeros((n_rows,), jnp.float32)
+    acc, m, l = lax.fori_loop(0, n_blocks, body, (acc, m, l))
+    o_ref[...] = acc
+    m_ref[...] = m
+    l_ref[...] = l
 
 
-def _paged_dma_body(pages_ref, lengths_ref, q_ref, k_hbm, v_hbm,
-                    ks_hbm, vs_hbm, o_ref, kbuf, vbuf, ksbuf, vsbuf, sems,
-                    *, page_size: int, pages_per_seq: int,
-                    window: Optional[int] = None, chunk: int = 1):
-    """Manual double-buffered page walk (guide: Patterns/Double Buffering).
-
-    One grid step = one sequence; pages stream HBM -> VMEM with two buffers,
-    the next page's DMA in flight while the current page computes.  The page
-    loop has a DYNAMIC trip count (cdiv(length, page_size)), so short
-    sequences in a continuous batch pay only for the pages they have --
-    the pallas-grid version must visit every slot.  A sliding ``window``
-    starts the walk at the first page overlapping [length - window, length),
-    so long histories pay only O(window) page loads.
-
-    Quantized (int8/fp8) pools stream their per-token scales alongside the
-    payload pages — scales arrive as (H, n_pages, page) so the DMA slice's
-    minor dim stays lane-aligned — and this path runs at payload bandwidth
-    (half the bytes of bf16), instead of falling back to the every-slot
-    grid walk.
-    """
-    quantized = ks_hbm is not None
-    b = pl.program_id(0)
-    length = lengths_ref[b]             # incl. the chunk (see _paged_kernel)
-    base = length - chunk
-    # clamp the walk to the table row: a chunked prefill wave's padding can
-    # push length past capacity (its writes were clamped; only padding rows
-    # reference those positions, and their outputs are ignored) — without
-    # this, pages_ref[b, i] reads past the row on-chip
-    n = jnp.minimum((length + page_size - 1) // page_size, pages_per_seq)
-    p0 = jnp.int32(0)
-    if window is not None:
-        # earliest chunk row (j=0) attends positions >= base + 1 - window
-        p0 = jnp.maximum(base + 1 - window, 0) // page_size
-    q = q_ref[0]                                      # (H, group*chunk, d)
-    h, group, dd = q.shape
-
-    streams = [(kbuf, k_hbm), (vbuf, v_hbm)]
-    if quantized:
-        streams += [(ksbuf, ks_hbm), (vsbuf, vs_hbm)]
-
-    def dma(buf, hbm, i, slot, kind):
-        return pltpu.make_async_copy(
-            hbm.at[:, pages_ref[b, i]], buf.at[slot], sems.at[slot, kind])
-
-    @pl.when(n > p0)
-    def _warmup():
-        s0 = jax.lax.rem(p0, 2)
-        for kind, (buf, hbm) in enumerate(streams):
-            dma(buf, hbm, p0, s0, kind).start()
-
-    def body(i, carry):
-        m_prev, l_prev, acc = carry
-        slot = jax.lax.rem(i, 2)
-
-        @pl.when(i + 1 < n)
-        def _prefetch():
-            nxt = 1 - slot
-            for kind, (buf, hbm) in enumerate(streams):
-                dma(buf, hbm, i + 1, nxt, kind).start()
-
-        for kind, (buf, hbm) in enumerate(streams):
-            dma(buf, hbm, i, slot, kind).wait()
-
-        k = kbuf[slot]                                # (H, page, d)
-        v = vbuf[slot]
-        s = jax.lax.dot_general(
-            q, k.astype(q.dtype), (((2,), (2,)), ((0,), (0,))),
-            preferred_element_type=jnp.float32,
-        )                                             # (H, group, page)
-        if quantized:
-            # per-token K scale: rank-1 column rescale after the dot
-            s = s * ksbuf[slot].reshape(h, 1, page_size)
-        pos = jax.lax.broadcasted_iota(jnp.int32, s.shape, 2) + i * page_size
-        j = jax.lax.broadcasted_iota(jnp.int32, s.shape, 1) % chunk
-        keep = pos < base + j + 1
-        if window is not None:
-            keep &= pos >= base + j + 1 - window
-        s = jnp.where(keep, s, -1e30)
-
-        m_curr = jnp.max(s, axis=-1, keepdims=True)
-        m_next = jnp.maximum(m_prev, m_curr)
-        alpha = jnp.exp2(m_prev - m_next)
-        p = jnp.exp2(s - m_next)
-        l_next = alpha * l_prev + jnp.sum(p, axis=-1, keepdims=True)
-        if quantized:
-            # fold the V scale into p -- (H, group, page) is the smaller
-            # operand at decode shapes (group*chunk rows vs d columns)
-            p = p * vsbuf[slot].reshape(h, 1, page_size)
-        pv = jax.lax.dot_general(
-            p.astype(q.dtype), v.astype(q.dtype), (((2,), (1,)), ((0,), (0,))),
-            preferred_element_type=jnp.float32,
-        )
-        return m_next, l_next, acc * alpha + pv
-
-    m0 = jnp.full((h, group, 1), -jnp.inf, jnp.float32)
-    l0 = jnp.zeros((h, group, 1), jnp.float32)
-    acc0 = jnp.zeros((h, group, dd), jnp.float32)
-    _, l, acc = jax.lax.fori_loop(p0, n, body, (m0, l0, acc0))
-    l_inv = jnp.where(l == 0.0, 1.0, 1.0 / l)
-    o_ref[0] = (acc * l_inv).astype(o_ref.dtype)
-
-
-def _paged_dma_kernel(pages_ref, lengths_ref, q_ref, k_hbm, v_hbm, o_ref,
-                      kbuf, vbuf, sems, **kw):
-    return _paged_dma_body(pages_ref, lengths_ref, q_ref, k_hbm, v_hbm,
-                           None, None, o_ref, kbuf, vbuf, None, None, sems,
-                           **kw)
-
-
-def _paged_attention_pipelined(qg, k_pages, v_pages, lengths, page_indices,
-                               window=None, chunk=1, k_scales=None,
-                               v_scales=None):
-    b, n_kv_heads, group, d = qg.shape   # group already folds the chunk
-    _, _, page_size, _ = k_pages.shape
+def _paged_triton(qg, k_pages, v_pages, lengths, page_indices, k_scales,
+                  v_scales, chunk, window):
+    """qg: (B, Hkv, rows, d) prescaled.  Returns (B, Hkv, rows, d) f32."""
+    b, h_kv, n_rows, d = qg.shape
+    _, n_pages, page_size, _ = k_pages.shape
     pages_per_seq = page_indices.shape[1]
+    ppb = max(1, _BLOCK_K // page_size)
+    rows_p = max(16, pl.next_power_of_2(n_rows))
+    block_r = min(rows_p, _BLOCK_ROWS)
+    n_rb = rows_p // block_r
+    splits = min(pl.next_power_of_2(cdiv(_TARGET_PROGRAMS, b * h_kv * n_rb)),
+                 cdiv(pages_per_seq, ppb))
+    cols_per_split = round_up(cdiv(pages_per_seq, splits), ppb)
+    cols_pad = splits * cols_per_split
+    table = jnp.pad(page_indices.astype(jnp.int32),
+                    ((0, 0), (0, cols_pad - pages_per_seq)))
+    if rows_p != n_rows:
+        qg = jnp.pad(qg, ((0, 0), (0, 0), (0, rows_p - n_rows), (0, 0)))
     quantized = k_scales is not None
 
-    in_specs = [
-        pl.BlockSpec((1, n_kv_heads, group, d),
-                     lambda b_, pages, lens: (b_, 0, 0, 0)),
-        pl.BlockSpec(memory_space=pl.ANY),
-        pl.BlockSpec(memory_space=pl.ANY),
-    ]
-    scratch = [
-        pltpu.VMEM((2, n_kv_heads, page_size, d), k_pages.dtype),
-        pltpu.VMEM((2, n_kv_heads, page_size, d), v_pages.dtype),
-    ]
-    args = [qg, k_pages, v_pages]
+    pool = pl.BlockSpec((None, n_pages, page_size, d),
+                        lambda b_, h_, r_, s_: (h_, 0, 0, 0))
+    scale_spec = pl.BlockSpec((None, n_pages, page_size),
+                              lambda b_, h_, r_, s_: (h_, 0, 0))
+    in_specs = [pl.BlockSpec((None, None, block_r, d),
+                             lambda b_, h_, r_, s_: (b_, h_, r_, 0)),
+                pool, pool,
+                scale_spec if quantized else None,
+                scale_spec if quantized else None,
+                pl.BlockSpec((None, cols_pad), lambda b_, h_, r_, s_: (b_, 0)),
+                pl.BlockSpec((1,), lambda b_, h_, r_, s_: (b_,))]
     if quantized:
-        # (H, n_pages, page, 1) -> (H, n_pages, page): the per-page DMA
-        # slice then has a lane-aligned minor dim (page_size), which a
-        # trailing 1 would not
-        args += [k_scales.reshape(n_kv_heads, -1, page_size),
-                 v_scales.reshape(n_kv_heads, -1, page_size)]
-        in_specs += [pl.BlockSpec(memory_space=pl.ANY)] * 2
-        scratch += [pltpu.VMEM((2, n_kv_heads, page_size), jnp.float32)] * 2
-        kernel = _paged_dma_body
-    else:
-        kernel = _paged_dma_kernel
-    scratch.append(pltpu.SemaphoreType.DMA((2, 4 if quantized else 2)))
-
-    grid_spec = pltpu.PrefetchScalarGridSpec(
-        num_scalar_prefetch=2,
-        grid=(b,),
+        k_scales = k_scales.reshape(h_kv, n_pages, page_size)
+        v_scales = v_scales.reshape(h_kv, n_pages, page_size)
+    split_vec = pl.BlockSpec((None, None, None, block_r),
+                             lambda b_, h_, r_, s_: (b_, h_, s_, r_))
+    kernel = functools.partial(
+        _paged_kernel, page_size=page_size, pages_per_block=ppb,
+        cols_per_split=cols_per_split, pages_per_seq=pages_per_seq,
+        chunk=chunk, window=window)
+    o, m, l = pl.pallas_call(
+        kernel,
+        grid=(b, h_kv, n_rb, splits),
         in_specs=in_specs,
-        out_specs=pl.BlockSpec((1, n_kv_heads, group, d),
-                               lambda b_, pages, lens: (b_, 0, 0, 0)),
-        scratch_shapes=scratch,
-    )
-    out = pl.pallas_call(
-        functools.partial(kernel, page_size=page_size,
-                          pages_per_seq=pages_per_seq, window=window,
-                          chunk=chunk),
-        grid_spec=grid_spec,
-        out_shape=jax.ShapeDtypeStruct((b, n_kv_heads, group, d), qg.dtype),
+        out_specs=[pl.BlockSpec((None, None, None, block_r, d),
+                                lambda b_, h_, r_, s_: (b_, h_, s_, r_, 0)),
+                   split_vec, split_vec],
+        out_shape=[jax.ShapeDtypeStruct((b, h_kv, splits, rows_p, d),
+                                        jnp.float32),
+                   jax.ShapeDtypeStruct((b, h_kv, splits, rows_p), jnp.float32),
+                   jax.ShapeDtypeStruct((b, h_kv, splits, rows_p), jnp.float32)],
+        compiler_params=plgpu.CompilerParams(num_warps=4, num_stages=2),
+        backend="triton",
         interpret=use_interpret_mode(),
-    )(page_indices.astype(jnp.int32), lengths.astype(jnp.int32), *args)
-    return out
+        name="paged_decode",
+    )(qg, k_pages, v_pages, k_scales, v_scales, table,
+      lengths.astype(jnp.int32))
+    # merge the splits by their (base-2) log-sum-exp
+    m_all = jnp.max(m, axis=2, keepdims=True)
+    w = jnp.exp2(m - m_all)
+    l_all = jnp.sum(w * l, axis=2)
+    o = jnp.sum(w[..., None] * o, axis=2)
+    o = o / jnp.where(l_all == 0.0, 1.0, l_all)[..., None]
+    return o[:, :, :n_rows]
 
 
 def paged_attention(
@@ -286,134 +220,56 @@ def paged_attention(
     k_scales: Optional[Array] = None,   # (n_kv_heads, n_pages, page_size, 1)
     v_scales: Optional[Array] = None,
     sm_scale: Optional[float] = None,
-    pipelined: bool = True,
     window: Optional[int] = None,
+    impl: str = "auto",
 ) -> Array:
     """Decode-time attention of one query token (or a ``chunk`` of tokens)
     per sequence against its paged KV history.  Returns (B, n_q_heads, d)
     (or (B, chunk, n_q_heads, d) for a 4-d q).
 
-    A chunked q enables multi-token decode — speculative-decoding
+    A chunked q enables multi-token decode -- speculative-decoding
     verification and chunked prefill-extend: chunk row j sits at absolute
     position ``lengths - chunk + j`` and attends causally within the chunk;
     ``lengths`` counts valid tokens INCLUDING the chunk, whose K/V must
-    already be scattered into the pages.
-
-    ``pipelined=True`` (bf16 pages only) uses the manual double-buffered DMA
-    walk with a dynamic page-count loop; otherwise a pallas-grid schedule
-    visiting every page slot (also the quantized-page path).  ``window``
-    restricts attention to the last ``window`` positions (sliding-window
-    decode): the pipelined walk STARTS at the first in-window page and the
-    grid path skips out-of-window pages, so page loads are O(window)."""
+    already be scattered into the pages.  ``window`` restricts attention to
+    the last ``window`` positions; the kernel starts its walk at the first
+    in-window page, so page loads are O(window)."""
+    d = q.shape[-1]
+    page_size = k_pages.shape[2]
+    if choose_paged_impl(d, page_size, impl) == "reference":
+        return paged_attention_reference(q, k_pages, v_pages, lengths,
+                                         page_indices, k_scales, v_scales,
+                                         sm_scale, window)
     chunked_in = q.ndim == 4
     if not chunked_in:
         q = q[:, None]                          # (B, 1, Hq, d)
-    b, chunk, n_q_heads, d = q.shape
-    n_kv_heads, n_pages, page_size, _ = k_pages.shape
+    b, chunk, n_q_heads, _ = q.shape
+    n_kv_heads = k_pages.shape[0]
     assert n_q_heads % n_kv_heads == 0
     group = n_q_heads // n_kv_heads
-    pages_per_seq = page_indices.shape[1]
     scale = sm_scale if sm_scale is not None else 1.0 / (d**0.5)
-    quantized = k_scales is not None
 
     # (B, chunk, Hq, d) -> (B, Hkv, group*chunk, d) with rows ordered
-    # (group, chunk) — the kernels recover j = row % chunk; prescaled with
-    # log2(e) folded in so the online softmax runs in exp2 (VPU-native).
-    qg = (q * jnp.asarray(scale * 1.4426950408889634, q.dtype))
+    # (group, chunk); prescaled with log2(e) folded in (base-2 softmax)
+    qg = q * jnp.asarray(scale * LOG2E, q.dtype)
     qg = qg.reshape(b, chunk, n_kv_heads, group, d)
     qg = qg.transpose(0, 2, 3, 1, 4).reshape(b, n_kv_heads, group * chunk, d)
-
-    def unfold(out):                            # (B, Hkv, group*chunk, d)
-        out = out.reshape(b, n_kv_heads, group, chunk, d)
-        out = out.transpose(0, 3, 1, 2, 4).reshape(b, chunk, n_q_heads, d)
-        return out if chunked_in else out[:, 0]
-
-    # The manual-DMA path slices pages out of the (possibly VMEM-resident)
-    # pool; Mosaic requires the minor dim of such slices to be lane-tile
-    # aligned, so gate on d % 128 (the grid path handles sub-tile head
-    # dims).  Quantized pools ride the same walk (scales streamed alongside
-    # payloads) when page_size keeps their slices aligned too.
-    if pipelined and d % 128 == 0 and (
-            not quantized or page_size % 128 == 0):
-        out = _paged_attention_pipelined(
-            qg, k_pages, v_pages, lengths, page_indices, window, chunk,
-            k_scales=k_scales, v_scales=v_scales)
-        return unfold(out)
-
-    def q_map(b_, i_, pages, lens):
-        return (b_, 0, 0, 0)
-
-    def kv_map(b_, i_, pages, lens):
-        # clamp skipped grid steps onto the nearest RUNNING step's page so
-        # Pallas elides their DMAs (same trick as the flash kernels' causal
-        # block-skip): high side = last valid page, low side = first
-        # in-window page.  Without this the grid path loads every page slot
-        # and the window's O(window) bandwidth saving never materialises.
-        hi = jnp.minimum(jnp.maximum(lens[b_] - 1, 0) // page_size,
-                         pages_per_seq - 1)   # padding can exceed capacity
-        i_ = jnp.minimum(i_, hi)
-        if window is not None:
-            # earliest page the kernel runs: chunk row j=0 at position
-            # lens - chunk attends >= lens - chunk + 1 - window
-            lo = jnp.maximum(lens[b_] - chunk + 1 - window, 0) // page_size
-            i_ = jnp.maximum(i_, jnp.minimum(lo, hi))
-        return (0, pages[b_, i_], 0, 0)
-
-    def o_map(b_, i_, pages, lens):
-        return (b_, 0, 0, 0)
-
-    gc = group * chunk
-    in_specs = [
-        pl.BlockSpec((1, n_kv_heads, gc, d), q_map),
-        pl.BlockSpec((n_kv_heads, 1, page_size, d), kv_map),
-        pl.BlockSpec((n_kv_heads, 1, page_size, d), kv_map),
-    ]
-    args = [qg, k_pages, v_pages]
-    if quantized:
-        in_specs += [
-            pl.BlockSpec((n_kv_heads, 1, page_size, 1), kv_map),
-            pl.BlockSpec((n_kv_heads, 1, page_size, 1), kv_map),
-        ]
-        args += [k_scales, v_scales]
-
-        kernel = functools.partial(
-            _paged_kernel, page_size=page_size, quantized=True,
-            window=window, chunk=chunk,
-        )
-    else:
-        def kernel(pages_ref, lengths_ref, q_ref, k_ref, v_ref,
-                   o_ref, m_scr, l_scr, acc_scr):
-            return _paged_kernel(pages_ref, lengths_ref, q_ref, k_ref, v_ref,
-                                 None, None, o_ref, m_scr, l_scr, acc_scr,
-                                 page_size=page_size, quantized=False,
-                                 window=window, chunk=chunk)
-
-    grid_spec = pltpu.PrefetchScalarGridSpec(
-        num_scalar_prefetch=2,
-        grid=(b, pages_per_seq),
-        in_specs=in_specs,
-        out_specs=pl.BlockSpec((1, n_kv_heads, gc, d), o_map),
-        scratch_shapes=[
-            pltpu.VMEM((n_kv_heads, gc, 1), jnp.float32),
-            pltpu.VMEM((n_kv_heads, gc, 1), jnp.float32),
-            pltpu.VMEM((n_kv_heads, gc, d), jnp.float32),
-        ],
-    )
-    out = pl.pallas_call(
-        kernel,
-        grid_spec=grid_spec,
-        out_shape=jax.ShapeDtypeStruct((b, n_kv_heads, gc, d), q.dtype),
-        interpret=use_interpret_mode(),
-    )(page_indices.astype(jnp.int32), lengths.astype(jnp.int32), *args)
-    return unfold(out)
+    out = _paged_triton(qg, k_pages, v_pages, lengths, page_indices,
+                        k_scales, v_scales, chunk, window)
+    out = out.reshape(b, n_kv_heads, group, chunk, d)
+    out = out.transpose(0, 3, 1, 2, 4).reshape(b, chunk, n_q_heads, d)
+    out = out.astype(q.dtype)
+    return out if chunked_in else out[:, 0]
 
 
 def paged_attention_reference(q, k_pages, v_pages, lengths, page_indices,
                               k_scales=None, v_scales=None, sm_scale=None,
                               window=None):
-    """jnp oracle: gather pages densely, mask by length, full softmax.
-    ``q`` may be (B, Hq, d) or chunked (B, chunk, Hq, d) — chunk row j sits
-    at position ``lengths - chunk + j`` (same convention as the kernel)."""
+    """jnp oracle and XLA route: gather pages densely, mask by length, full
+    softmax.  ``q`` may be (B, Hq, d) or chunked (B, chunk, Hq, d) -- chunk
+    row j sits at position ``lengths - chunk + j`` (same convention as the
+    kernel).  Pages are gathered at their stored width and dequantised
+    after the gather."""
     chunked_in = q.ndim == 4
     if not chunked_in:
         q = q[:, None]
@@ -421,17 +277,18 @@ def paged_attention_reference(q, k_pages, v_pages, lengths, page_indices,
     n_kv_heads, _, page_size, _ = k_pages.shape
     group = n_q_heads // n_kv_heads
     scale = sm_scale if sm_scale is not None else 1.0 / (d**0.5)
-    if k_scales is not None:
-        k_pages = k_pages.astype(jnp.float32) * k_scales
-        v_pages = v_pages.astype(jnp.float32) * v_scales
-    # (B, Hkv, pages*page, d)
-    k_seq = k_pages[:, page_indices].transpose(1, 0, 2, 3, 4)
-    k_seq = k_seq.reshape(b, n_kv_heads, -1, d)
-    v_seq = v_pages[:, page_indices].transpose(1, 0, 2, 3, 4)
-    v_seq = v_seq.reshape(b, n_kv_heads, -1, d)
+
+    def gather(pages, scales):
+        # (Hkv, B, pages, page, d) -> (B, Hkv, pages*page, d)
+        t = pages[:, page_indices].astype(jnp.float32)
+        if scales is not None:
+            t = t * scales[:, page_indices]
+        return t.transpose(1, 0, 2, 3, 4).reshape(b, n_kv_heads, -1, d)
+
+    k_seq = gather(k_pages, k_scales)
+    v_seq = gather(v_pages, v_scales)
     qg = q.reshape(b, chunk, n_kv_heads, group, d).astype(jnp.float32)
-    s = jnp.einsum("bjhgd,bhkd->bjhgk", qg,
-                   k_seq.astype(jnp.float32)) * scale
+    s = jnp.einsum("bjhgd,bhkd->bjhgk", qg, k_seq) * scale
     pos = jnp.arange(s.shape[-1])[None, None, None, None, :]  # (1,1,1,1,K)
     bound = (lengths[:, None] - chunk + 1
              + jnp.arange(chunk)[None, :])          # (B, chunk) exclusive
@@ -441,6 +298,6 @@ def paged_attention_reference(q, k_pages, v_pages, lengths, page_indices,
         keep &= pos >= bound - window
     s = jnp.where(keep, s, -1e30)
     w = jax.nn.softmax(s, axis=-1)
-    o = jnp.einsum("bjhgk,bhkd->bjhgd", w, v_seq.astype(jnp.float32))
+    o = jnp.einsum("bjhgk,bhkd->bjhgd", w, v_seq)
     o = o.reshape(b, chunk, n_q_heads, d).astype(q.dtype)
     return o if chunked_in else o[:, 0]

@@ -1,37 +1,24 @@
-"""Quantization: int8 tensors, fused dequant matmul, int8 KV-cache attention.
+"""Quantization: int8 / fp8 tensors and the weight-only matmul.
 
 The reference only *declares* a quantized surface (unimplemented lightseq
 prototypes ``launch_layer_norm_i8`` etc., src/includes/kernels.h:30,101-175,
-and test helpers test_utils.py:71-88); BASELINE.json's north star makes it
-real: INT8 weight-only dequant fused into the attention/projection matmuls
-and an INT8 KV-cache dequantised inside the flash-attention inner loop.
+and test helpers test_utils.py:71-88).  Here it is real and plain JAX:
 
-Layout choices are TPU-first:
-* symmetric per-channel (absmax/127) scales kept in f32,
-* int8 payloads feed the MXU directly (int8 matmul accumulates in int32 at
-  ~2x bf16 throughput) when both sides are int8, or are dequantised to bf16
-  in VMEM for weight-only mode,
-* KV-cache scales are per (batch, head, token) so the attention inner loop
-  applies them as a rank-1 rescale after the MXU dot.
+* symmetric per-channel (absmax/127 or absmax/448) scales kept in f32;
+* weight-only matmuls convert the int8/fp8 payload to the activation dtype
+  inside the product, which XLA fuses into the GEMM's operand load, so the
+  weight is read from device memory at one byte per element;
+* quantised KV pages are read by the paged decode kernel
+  (``ops/paged_attention.py``), which applies the per-token scales after
+  its dots.
 """
 
 from __future__ import annotations
 
-import functools
-from typing import NamedTuple, Optional
+from typing import NamedTuple
 
 import jax
 import jax.numpy as jnp
-from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
-
-from ._utils import (
-    DEFAULT_MASK_VALUE,
-    cdiv,
-    largest_divisor_block,
-    ragged_row_block,
-    use_interpret_mode,
-)
 
 Array = jax.Array
 
@@ -53,8 +40,8 @@ class QuantizedTensor(NamedTuple):
 def quantize_int8(x: Array, axis: int = -1) -> QuantizedTensor:
     """Symmetric per-channel int8 quantisation (absmax / 127) along ``axis``.
 
-    Plain jnp -- XLA fuses the absmax+scale+round chain; use
-    :func:`quantize_int8_stochastic` for the Pallas stochastic-rounding path.
+    Plain jnp -- XLA fuses the absmax+scale+round chain; see
+    :func:`quantize_int8_stochastic` for unbiased rounding.
     """
     absmax = jnp.max(jnp.abs(x), axis=axis, keepdims=True)
     scale = jnp.where(absmax == 0, 1.0, absmax / 127.0).astype(jnp.float32)
@@ -69,9 +56,9 @@ def quantize_fp8(x: Array, axis: int = -1) -> QuantizedTensor:
     """Symmetric per-channel FP8 (e4m3) quantisation (absmax / 448).
 
     Same :class:`QuantizedTensor` container as int8 — every consumer
-    (weight-only matmul, quantised-KV flash attention, paged int8 pages)
+    (weight-only matmul, paged int8/fp8 pages)
     dequantises via ``payload.astype(compute_dtype) * scales``, which is
-    dtype-generic, so fp8 payloads flow through the same kernels.  FP8 keeps
+    dtype-generic, so fp8 payloads flow through the same code.  FP8 keeps
     ~2 decimal digits of mantissa vs int8's uniform grid: better for
     long-tailed activations/KV, same 2x HBM saving.
     """
@@ -81,673 +68,38 @@ def quantize_fp8(x: Array, axis: int = -1) -> QuantizedTensor:
     return QuantizedTensor(q, scale)
 
 
-def _stochastic_quant_kernel(x_ref, seed_ref, q_ref, scale_ref):
-    pltpu.prng_seed(seed_ref[0])
-    x = x_ref[...].astype(jnp.float32)
-    absmax = jnp.max(jnp.abs(x), axis=-1, keepdims=True)
-    scale = jnp.where(absmax == 0, 1.0, absmax / 127.0)
-    scale_ref[...] = scale
-    scaled = x / scale
-    # pltpu.stochastic_round only targets bf16/fp8; int8 stochastic rounding
-    # is floor(x + u), u ~ U[0,1) built from the top 23 PRNG bits (exact in
-    # f32, E[floor(x+u)] = x).  Mosaic has no uint32->f32 cast; go via int32
-    # (23-bit value stays positive).
-    bits = pltpu.bitcast(pltpu.prng_random_bits(scaled.shape), jnp.uint32)
-    u = (bits >> 9).astype(jnp.int32).astype(jnp.float32) * (1.0 / (1 << 23))
-    q_ref[...] = jnp.clip(jnp.floor(scaled + u), -127, 127).astype(jnp.int8)
-
-
 def quantize_int8_stochastic(x: Array, seed: int | Array = 0) -> QuantizedTensor:
-    """Per-row int8 quantisation with stochastic rounding (Pallas kernel).
+    """Per-row int8 quantisation with stochastic rounding.
 
     Unbiased rounding matters when quantised tensors feed gradients (e.g.
     int8 KV-cache during training).  2D input (rows, cols); rows scaled.
+    ``round(x + u - 1/2)`` with ``u ~ U[0, 1)`` from ``jax.random`` is
+    ``floor(x + u)``, whose expectation is ``x``.
     """
-    n, h = x.shape
-    if use_interpret_mode():
-        # pltpu.prng_seed has no CPU lowering; jnp fallback with the same
-        # semantics (per-row scale, unbiased rounding).
-        absmax = jnp.max(jnp.abs(x), axis=-1, keepdims=True)
-        scale = jnp.where(absmax == 0, 1.0, absmax / 127.0).astype(jnp.float32)
-        scaled = x / scale
-        noise = jax.random.uniform(jax.random.PRNGKey(seed if not isinstance(seed, jax.Array) else 0), x.shape) - 0.5
-        q = jnp.clip(jnp.round(scaled + noise), -127, 127).astype(jnp.int8)
-        return QuantizedTensor(q, scale)
-    # Ragged last block is safe: rows are independent and OOB writes dropped.
-    block = ragged_row_block(n, 256)
-    seed_arr = jnp.asarray([seed], jnp.int32) if not isinstance(seed, jax.Array) else seed.reshape(1).astype(jnp.int32)
-    q, scales = pl.pallas_call(
-        _stochastic_quant_kernel,
-        grid=(cdiv(n, block),),
-        in_specs=[
-            pl.BlockSpec((block, h), lambda i: (i, 0)),
-            pl.BlockSpec(memory_space=pltpu.SMEM),
-        ],
-        out_specs=[
-            pl.BlockSpec((block, h), lambda i: (i, 0)),
-            pl.BlockSpec((block, 1), lambda i: (i, 0)),
-        ],
-        out_shape=[
-            jax.ShapeDtypeStruct((n, h), jnp.int8),
-            jax.ShapeDtypeStruct((n, 1), jnp.float32),
-        ],
-        interpret=use_interpret_mode(),
-    )(x, seed_arr)
-    return QuantizedTensor(q, scales)
+    absmax = jnp.max(jnp.abs(x), axis=-1, keepdims=True)
+    scale = jnp.where(absmax == 0, 1.0, absmax / 127.0).astype(jnp.float32)
+    scaled = x / scale
+    noise = jax.random.uniform(jax.random.PRNGKey(seed), x.shape) - 0.5
+    q = jnp.clip(jnp.round(scaled + noise), -127, 127).astype(jnp.int8)
+    return QuantizedTensor(q, scale)
 
 
-# ---------------------------------------------------------------------------
-# Weight-only int8 matmul: y = x @ (w_int8 * scales)
-# Dequant is fused into the MXU K-loop -- w never exists in bf16 in HBM.
-# ---------------------------------------------------------------------------
+def int8_weight_only_matmul(x: Array, w: QuantizedTensor) -> Array:
+    """x (M, K) @ dequant(w) (K, N) with per-output-channel scales (1, N),
+    accumulated in f32 and returned in ``x.dtype``.
 
-
-def _wo_matmul_kernel(x_ref, w_ref, s_ref, o_ref, acc_ref, *, n_k: int):
-    ki = pl.program_id(2)
-
-    @pl.when(ki == 0)
-    def _():
-        acc_ref[...] = jnp.zeros_like(acc_ref)
-
-    x = x_ref[...]
-    # Dequantise the weight tile in VMEM: int8 -> input dtype, per-out-channel
-    # scale applied after the dot (scales are per output column).
-    w = w_ref[...].astype(x.dtype)
-    acc_ref[...] += jax.lax.dot(x, w, preferred_element_type=jnp.float32)
-
-    @pl.when(ki == n_k - 1)
-    def _():
-        o_ref[...] = (acc_ref[...] * s_ref[...].astype(jnp.float32)).astype(o_ref.dtype)
-
-
-def int8_weight_only_matmul(x: Array, w: QuantizedTensor,
-                            block_m: int = 256, block_n: int = 512,
-                            block_k: int = 2048) -> Array:
-    """x (M, K) @ dequant(w) (K, N) with per-output-channel scales (1, N).
-
-    The reference equivalent would be a cuBLAS GEMM on pre-dequantised
-    weights; here dequant happens tile-by-tile in VMEM.
-
-    Block defaults from the r5 sweep (`r5_smem_int8wo.log`, (rows, 2048) x
-    (2048, 8192)): big K tiles let Mosaic pipeline the int8->bf16 dequant
-    against the weight DMA — (k2048, n512) wins at BOTH scales, 24.5us at
-    rows=8 (685 GB/s of int8 weight reads = 1.9x the bf16 matmul, the
-    halved weight traffic finally landing) and 182.2 TF at rows=2048
-    (0.97x bf16).  The old (k512, n256) defaults measured 0.5-0.9x bf16
-    everywhere — tiles too small to hide the dequant.
+    The payload is converted to ``x.dtype`` inside the product and the
+    scales applied to its (M, N) result; XLA fuses the convert into the
+    GEMM, so no dequantised copy of ``w`` is written.  int8 and fp8
+    payloads alike.
     """
     m, k = x.shape
     k2, n = w.values.shape
     assert k == k2
     assert w.scales.shape == (1, n), "weight scales must be per output channel"
-    bm = largest_divisor_block(m, block_m, 8) or m
-    bn = largest_divisor_block(n, block_n, 128) or n
-    bk = largest_divisor_block(k, block_k, 128) or k
-    if m % bm or n % bn or k % bk:
-        return (x @ w.dequantize(x.dtype))  # fallback for ragged shapes
-
-    return pl.pallas_call(
-        functools.partial(_wo_matmul_kernel, n_k=k // bk),
-        grid=(m // bm, n // bn, k // bk),
-        in_specs=[
-            pl.BlockSpec((bm, bk), lambda i, j, kk: (i, kk)),
-            pl.BlockSpec((bk, bn), lambda i, j, kk: (kk, j)),
-            pl.BlockSpec((1, bn), lambda i, j, kk: (0, j)),
-        ],
-        out_specs=pl.BlockSpec((bm, bn), lambda i, j, kk: (i, j)),
-        out_shape=jax.ShapeDtypeStruct((m, n), x.dtype),
-        scratch_shapes=[pltpu.VMEM((bm, bn), jnp.float32)],
-        compiler_params=pltpu.CompilerParams(
-            dimension_semantics=("parallel", "parallel", "arbitrary"),
-        ),
-        interpret=use_interpret_mode(),
-    )(x, w.values, w.scales)
-
-
-# ---------------------------------------------------------------------------
-# Flash attention over an int8 KV-cache.
-#
-# K/V live in HBM as int8 with per-(b, h, token) scales; tiles are
-# dequantised in VMEM inside the online-softmax loop.  Halves KV HBM
-# bandwidth -- the win the north star targets at seq 4K-8K.
-# ---------------------------------------------------------------------------
-
-
-def _kv8_fwd_kernel(q_ref, k_ref, ks_ref, v_ref, vs_ref, o_ref, lse_ref,
-                    m_scr, l_scr, acc_scr, *q8_scratch,
-                    causal: bool, block_q: int, block_k: int, num_kv: int,
-                    int8_mxu: bool):
-    qi = pl.program_id(2)
-    ki = pl.program_id(3)
-    if int8_mxu:
-        q8_scr, qs_scr = q8_scratch  # only allocated on the int8-MXU path
-
-    @pl.when(ki == 0)
-    def _init():
-        m_scr[...] = jnp.full_like(m_scr, -jnp.inf)
-        l_scr[...] = jnp.zeros_like(l_scr)
-        acc_scr[...] = jnp.zeros_like(acc_scr)
-        if int8_mxu:
-            # Quantize q ONCE per q-tile (the kv grid axis revisits it):
-            # symmetric per-row absmax so the scores dot can run int8 x int8
-            # on the MXU (2x bf16 MACs on v5e) with an int32 accumulator;
-            # the true scale comes back as a rank-1 rescale after the dot.
-            qf = q_ref[0, 0].astype(jnp.float32)          # (bq, d)
-            absmax = jnp.max(jnp.abs(qf), axis=-1, keepdims=True)
-            qs = jnp.where(absmax == 0, 1.0, absmax / 127.0)
-            qs_scr[...] = qs
-            q8_scr[...] = jnp.clip(
-                jnp.round(qf / qs), -127, 127).astype(jnp.int8)
-
-    should_run = True
-    if causal:
-        should_run = (qi + 1) * block_q - 1 >= ki * block_k
-
-    def update(s):
-        # online-softmax state update + PV accumulation (shared by the
-        # masked / interior / non-causal paths)
-        m_prev = m_scr[...]
-        l_prev = l_scr[...]
-        m_curr = jnp.max(s, axis=-1, keepdims=True)
-        m_next = jnp.maximum(m_prev, m_curr)
-        alpha = jnp.exp2(m_prev - m_next)
-        p = jnp.exp2(s - m_next)
-        l_scr[...] = alpha * l_prev + jnp.sum(p, axis=-1, keepdims=True)
-        m_scr[...] = m_next
-        # v dequant: fold the per-token scale into the (bk, d) V tile --
-        # strictly fewer VPU ops than rescaling the (bq, bk) weights p.
-        q = q_ref[0, 0]
-        vs = vs_ref[0, 0]                                 # (bk, 1) f32
-        v8 = v_ref[0, 0]                                  # (bk, d) int8/fp8
-        v = (v8.astype(jnp.float32) * vs).astype(q.dtype)
-        pv = jax.lax.dot(p.astype(q.dtype), v,
-                         preferred_element_type=jnp.float32)
-        acc_scr[...] = acc_scr[...] * alpha + pv
-
-    @pl.when(should_run)
-    def _compute():
-        q = q_ref[0, 0]                                   # (bq, d) bf16/f32
-        k8 = k_ref[0, 0]                                  # (bk, d) int8/fp8
-        ks = ks_ref[0, 0]                                 # (bk, 1) f32
-
-        if int8_mxu:
-            # int8 q-tile x int8 K on the MXU, int32 accumulate; the q row
-            # scale and per-token K scale are rank-1 rescales of the scores:
-            #   (q8*qs) @ (k8*ks)^T == (q8 @ k8^T) * qs * ks^T
-            s = jax.lax.dot_general(
-                q8_scr[...], k8, (((1,), (1,)), ((), ())),
-                preferred_element_type=jnp.int32,
-            ).astype(jnp.float32) * qs_scr[...] * ks.reshape(1, -1)
-        else:
-            # fp8 payloads (no native fp8 MXU on v5e): dequantise K to the
-            # activation dtype and rescale the scores after the dot.
-            s = jax.lax.dot_general(
-                q, k8.astype(q.dtype), (((1,), (1,)), ((), ())),
-                preferred_element_type=jnp.float32,
-            ) * ks.reshape(1, -1)
-
-        if causal:
-            # Unconditional iota+where on every running tile: branching the
-            # mask on a per-tile predicate measured ~18% SLOWER (r3_followup
-            # A/B — predication around the dot breaks Mosaic pipelining).
-            row_min = qi * block_q
-            col_min = ki * block_k
-            rows = jax.lax.broadcasted_iota(jnp.int32, s.shape, 0) + row_min
-            cols = jax.lax.broadcasted_iota(jnp.int32, s.shape, 1) + col_min
-            update(jnp.where(cols <= rows, s, DEFAULT_MASK_VALUE))
-        else:
-            update(s)
-
-    @pl.when(ki == num_kv - 1)
-    def _finalize():
-        l = l_scr[...]
-        l_inv = jnp.where(l == 0.0, 1.0, 1.0 / l)
-        o_ref[0, 0] = (acc_scr[...] * l_inv).astype(o_ref.dtype)
-        # m is in the base-2 domain (log2e folded into the q scale).
-        lse = m_scr[...] * 0.6931471805599453 + jnp.log(
-            jnp.where(l == 0.0, 1.0, l))
-        lse_ref[0, 0] = lse.astype(lse_ref.dtype)
-
-
-def _kv8_loop_kernel(q_ref, kd_ref, kds_ref, vd_ref, vds_ref,
-                     k_hbm, ks_hbm, v_hbm, vs_hbm, o_ref, lse_ref,
-                     m_scr, l_scr, acc_scr, kbuf, ksbuf, vbuf, vsbuf, sems,
-                     *, block_q: int, chunk: int, diag_strip: int,
-                     group: int, int8_mxu: bool):
-    """Quantized-KV port of the q-major loop schedule
-    (flash_attention.py::_fwd_loop_kernel): interior chunks streamed by
-    double-buffered DMA (payloads + per-token scale ROWS), the diagonal
-    block as trace-time triangular row groups.  Scales ride in (1, n) row
-    layout so both the K-scale rescale of the scores and the V-scale fold
-    into p are lane-broadcasts.  int8 payloads run the scores dot int8 x
-    int8 on the MXU (q quantised once per q block at trace time — no
-    pl.when, unlike the grid kernel's ki==0 gate)."""
-    b_ = pl.program_id(0)
-    h_ = pl.program_id(1)
-    qi = pl.program_id(2)
-    hk = h_ // group
-
-    q = q_ref[0, 0]                                   # (bq, d), pre-scaled
-    if int8_mxu:
-        qf = q.astype(jnp.float32)
-        absmax = jnp.max(jnp.abs(qf), axis=-1, keepdims=True)
-        qs = jnp.where(absmax == 0, 1.0, absmax / 127.0)    # (bq, 1)
-        q8 = jnp.clip(jnp.round(qf / qs), -127, 127).astype(jnp.int8)
-
-    def score(k8_blk, ks_row, q8_blk=None, qs_blk=None):
-        if int8_mxu:
-            return jax.lax.dot_general(
-                q8_blk, k8_blk, (((1,), (1,)), ((), ())),
-                preferred_element_type=jnp.int32,
-            ).astype(jnp.float32) * qs_blk * ks_row
-        return jax.lax.dot_general(
-            q if q8_blk is None else q8_blk, k8_blk.astype(q.dtype),
-            (((1,), (1,)), ((), ())),
-            preferred_element_type=jnp.float32) * ks_row
-
-    m_scr[...] = jnp.full_like(m_scr, -jnp.inf)
-    l_scr[...] = jnp.zeros_like(l_scr)
-    acc_scr[...] = jnp.zeros_like(acc_scr)
-
-    n_int = qi * (block_q // chunk)
-
-    def dma(buf, hbm, i, slot, kind):
-        return pltpu.make_async_copy(
-            hbm.at[b_, hk, pl.ds(i * chunk, chunk)],
-            buf.at[slot], sems.at[slot, kind])
-
-    def dma_row(buf, hbm, i, slot, kind):
-        return pltpu.make_async_copy(
-            hbm.at[b_, hk, :, pl.ds(i * chunk, chunk)],
-            buf.at[slot], sems.at[slot, kind])
-
-    def start(i, slot):
-        dma(kbuf, k_hbm, i, slot, 0).start()
-        dma(vbuf, v_hbm, i, slot, 1).start()
-        dma_row(ksbuf, ks_hbm, i, slot, 2).start()
-        dma_row(vsbuf, vs_hbm, i, slot, 3).start()
-
-    def wait(i, slot):
-        dma(kbuf, k_hbm, i, slot, 0).wait()
-        dma(vbuf, v_hbm, i, slot, 1).wait()
-        dma_row(ksbuf, ks_hbm, i, slot, 2).wait()
-        dma_row(vsbuf, vs_hbm, i, slot, 3).wait()
-
-    @pl.when(n_int > 0)
-    def _warmup():
-        start(0, 0)
-
-    def body(i, _):
-        slot = jax.lax.rem(i, 2)
-
-        @pl.when(i + 1 < n_int)
-        def _prefetch():
-            start(i + 1, 1 - slot)
-
-        wait(i, slot)
-        s = score(kbuf[slot], ksbuf[slot],
-                  q8 if int8_mxu else None, qs if int8_mxu else None)
-        m_prev = m_scr[...]
-        l_prev = l_scr[...]
-        m_curr = jnp.max(s, axis=-1, keepdims=True)
-        m_next = jnp.maximum(m_prev, m_curr)
-        alpha = jnp.exp2(m_prev - m_next)
-        e = jnp.exp2(s - m_next)
-        m_scr[...] = m_next
-        l_scr[...] = alpha * l_prev + jnp.sum(e, axis=-1, keepdims=True)
-        # V scale folded into p (lane-broadcast; the per-row V dequant would
-        # need a (chunk, 1) column layout the row streams don't carry)
-        pv = jax.lax.dot((e * vsbuf[slot]).astype(q.dtype),
-                         vbuf[slot].astype(q.dtype),
-                         preferred_element_type=jnp.float32)
-        acc_scr[...] = acc_scr[...] * alpha + pv
-        return 0
-
-    jax.lax.fori_loop(0, n_int, body, 0)
-
-    # -- diagonal block: triangular row groups (see _fwd_loop_kernel) ------
-    kd8 = kd_ref[0, 0]
-    vd8 = vd_ref[0, 0]
-    ds = diag_strip if (diag_strip and block_q % diag_strip == 0
-                        and diag_strip < block_q) else block_q
-    for g in range(block_q // ds):
-        r0 = g * ds
-        c_hi = r0 + ds
-        kds_g = kds_ref[0, 0, :, :c_hi]               # (1, c_hi) f32
-        vds_g = vds_ref[0, 0, :, :c_hi]
-        sj = score(kd8[:c_hi], kds_g,
-                   q8[r0:c_hi] if int8_mxu else q[r0:c_hi],
-                   qs[r0:c_hi] if int8_mxu else None)  # (ds, c_hi)
-        rows = jax.lax.broadcasted_iota(jnp.int32, (ds, ds), 0)
-        cols = jax.lax.broadcasted_iota(jnp.int32, (ds, ds), 1)
-        wedge = jnp.where(cols <= rows, sj[:, r0:], DEFAULT_MASK_VALUE)
-        if r0 > 0:
-            sj = jnp.concatenate([sj[:, :r0], wedge], axis=1)
-        else:
-            sj = wedge
-        m_prev = m_scr[r0:c_hi, ...]
-        l_prev = l_scr[r0:c_hi, ...]
-        m_curr = jnp.max(sj, axis=-1, keepdims=True)
-        m_next = jnp.maximum(m_prev, m_curr)
-        alpha = jnp.exp2(m_prev - m_next)
-        e = jnp.exp2(sj - m_next)
-        m_scr[r0:c_hi, ...] = m_next
-        l_scr[r0:c_hi, ...] = alpha * l_prev + jnp.sum(e, -1, keepdims=True)
-        pv = jax.lax.dot((e * vds_g).astype(q.dtype),
-                         vd8[:c_hi].astype(q.dtype),
-                         preferred_element_type=jnp.float32)
-        acc_scr[r0:c_hi, ...] = acc_scr[r0:c_hi, ...] * alpha + pv
-
-    l = l_scr[...]
-    l_inv = jnp.where(l == 0.0, 1.0, 1.0 / l)
-    o_ref[0, 0] = (acc_scr[...] * l_inv).astype(o_ref.dtype)
-    lse = m_scr[...] * 0.6931471805599453 + jnp.log(
-        jnp.where(l == 0.0, 1.0, l))
-    lse_ref[0, 0] = lse.astype(lse_ref.dtype)
-
-
-def _kv8_flash_loop(q, k, v, *, sm_scale, block_q=1024, diag_strip=0):
-    """Causal int8/fp8-KV self-attention via the loop schedule.  Requires
-    block_q | n (dispatcher guarantees)."""
-    from .flash_attention import LOG2E
-
-    b, h, n, d = q.shape
-    h_kv = k.values.shape[1]
-    group = h // h_kv
-    num_q = n // block_q
-    int8_mxu = k.values.dtype == jnp.int8
-
-    q = q * jnp.asarray(sm_scale * LOG2E, q.dtype)
-    # scale ROWS: (b, h_kv, n, 1) -> (b, h_kv, 1, n) so per-chunk DMA slices
-    # are (1, chunk) with a lane-aligned minor dim
-    ks_row = k.scales.reshape(b, h_kv, 1, n)
-    vs_row = v.scales.reshape(b, h_kv, 1, n)
-
-    kernel = functools.partial(
-        _kv8_loop_kernel, block_q=block_q, chunk=block_q,
-        diag_strip=diag_strip, group=group, int8_mxu=int8_mxu)
-    o, lse = pl.pallas_call(
-        kernel,
-        grid=(b, h, num_q),
-        in_specs=[
-            pl.BlockSpec((1, 1, block_q, d),
-                         lambda b_, h_, q_: (b_, h_, q_, 0)),
-            pl.BlockSpec((1, 1, block_q, d),
-                         lambda b_, h_, q_: (b_, h_ // group, q_, 0)),
-            pl.BlockSpec((1, 1, 1, block_q),
-                         lambda b_, h_, q_: (b_, h_ // group, 0, q_)),
-            pl.BlockSpec((1, 1, block_q, d),
-                         lambda b_, h_, q_: (b_, h_ // group, q_, 0)),
-            pl.BlockSpec((1, 1, 1, block_q),
-                         lambda b_, h_, q_: (b_, h_ // group, 0, q_)),
-            pl.BlockSpec(memory_space=pl.ANY),
-            pl.BlockSpec(memory_space=pl.ANY),
-            pl.BlockSpec(memory_space=pl.ANY),
-            pl.BlockSpec(memory_space=pl.ANY),
-        ],
-        out_specs=[
-            pl.BlockSpec((1, 1, block_q, d),
-                         lambda b_, h_, q_: (b_, h_, q_, 0)),
-            pl.BlockSpec((1, 1, block_q, 1),
-                         lambda b_, h_, q_: (b_, h_, q_, 0)),
-        ],
-        out_shape=[
-            jax.ShapeDtypeStruct((b, h, n, d), q.dtype),
-            jax.ShapeDtypeStruct((b, h, n, 1), jnp.float32),
-        ],
-        scratch_shapes=[
-            pltpu.VMEM((block_q, 1), jnp.float32),
-            pltpu.VMEM((block_q, 1), jnp.float32),
-            pltpu.VMEM((block_q, d), jnp.float32),
-            pltpu.VMEM((2, block_q, d), k.values.dtype),
-            pltpu.VMEM((2, 1, block_q), jnp.float32),
-            pltpu.VMEM((2, block_q, d), v.values.dtype),
-            pltpu.VMEM((2, 1, block_q), jnp.float32),
-            pltpu.SemaphoreType.DMA((2, 4)),
-        ],
-        compiler_params=pltpu.CompilerParams(
-            dimension_semantics=("parallel", "parallel", "arbitrary")),
-        interpret=use_interpret_mode(),
-    )(q, k.values, ks_row, v.values, vs_row,
-      k.values, ks_row, v.values, vs_row)
-    return o, lse
-
-
-def _kv8_subrow_kernel(q_ref, k_ref, ks_ref, v_ref, vs_ref, o_ref, lse_ref,
-                       *, sub: int, n: int, int8_mxu: bool):
-    """Quantized-KV port of the subrow schedule
-    (flash_attention.py::_fwd_subrow_kernel): whole int8/fp8 K/V row + scale
-    rows VMEM-resident, trace-time triangular q row groups, single-pass
-    softmax — no online (m, l) chain at all.  q is quantised ONCE per
-    (batch, head) for the int8 x int8 MXU scores dot."""
-    q = q_ref[0, 0]                                   # (n, d), pre-scaled
-    k8 = k_ref[0, 0]                                  # (n, d) int8/fp8
-    v8 = v_ref[0, 0]
-    # scale rows are re-sliced per group straight from ks_ref/vs_ref
-    if int8_mxu:
-        qf = q.astype(jnp.float32)
-        absmax = jnp.max(jnp.abs(qf), axis=-1, keepdims=True)
-        qs = jnp.where(absmax == 0, 1.0, absmax / 127.0)    # (n, 1)
-        q8 = jnp.clip(jnp.round(qf / qs), -127, 127).astype(jnp.int8)
-    rows = jax.lax.broadcasted_iota(jnp.int32, (sub, sub), 0)
-    cols = jax.lax.broadcasted_iota(jnp.int32, (sub, sub), 1)
-    tri = cols <= rows
-    for g in range(n // sub):
-        r0 = g * sub
-        c_hi = r0 + sub
-        ks_g = ks_ref[0, 0, :, :c_hi]
-        vs_g = vs_ref[0, 0, :, :c_hi]
-        if int8_mxu:
-            s = jax.lax.dot_general(
-                q8[r0:c_hi], k8[:c_hi], (((1,), (1,)), ((), ())),
-                preferred_element_type=jnp.int32,
-            ).astype(jnp.float32) * qs[r0:c_hi] * ks_g    # (sub, c_hi)
-        else:
-            s = jax.lax.dot_general(
-                q[r0:c_hi], k8[:c_hi].astype(q.dtype),
-                (((1,), (1,)), ((), ())),
-                preferred_element_type=jnp.float32) * ks_g
-        wedge = jnp.where(tri, s[:, r0:], DEFAULT_MASK_VALUE)
-        if r0 > 0:
-            s = jnp.concatenate([s[:, :r0], wedge], axis=1)
-        else:
-            s = wedge
-        m = jnp.max(s, axis=-1, keepdims=True)
-        p = jnp.exp2(s - m)
-        l = jnp.sum(p, axis=-1, keepdims=True)
-        pv = jax.lax.dot((p * vs_g).astype(q.dtype), v8[:c_hi].astype(q.dtype),
-                         preferred_element_type=jnp.float32)
-        o_ref[0, 0, r0:c_hi] = (pv / l).astype(o_ref.dtype)
-        lse_ref[0, 0, r0:c_hi] = (m * 0.6931471805599453
-                                  + jnp.log(l)).astype(jnp.float32)
-
-
-def _kv8_flash_subrow(q, k, v, *, sm_scale, sub: int = 512,
-                      vmem_limit: Optional[int] = None):
-    """Causal int8/fp8-KV self-attention via the subrow schedule (the bf16
-    champion at every seq it fits).  Requires n_q == n_kv, sub | n, d = 128,
-    and the row to fit VMEM (``vmem_limit`` raises Mosaic's 16MB default
-    scoped budget for n > 2048, mirroring the bf16 kernel)."""
-    from .flash_attention import LOG2E
-
-    b, h, n, d = q.shape
-    h_kv = k.values.shape[1]
-    group = h // h_kv
-    int8_mxu = k.values.dtype == jnp.int8
-
-    q = q * jnp.asarray(sm_scale * LOG2E, q.dtype)
-    ks_row = k.scales.reshape(b, h_kv, 1, n)
-    vs_row = v.scales.reshape(b, h_kv, 1, n)
-    o, lse = pl.pallas_call(
-        functools.partial(_kv8_subrow_kernel, sub=sub, n=n,
-                          int8_mxu=int8_mxu),
-        grid=(b, h),
-        in_specs=[
-            pl.BlockSpec((1, 1, n, d), lambda b_, h_: (b_, h_, 0, 0)),
-            pl.BlockSpec((1, 1, n, d),
-                         lambda b_, h_: (b_, h_ // group, 0, 0)),
-            pl.BlockSpec((1, 1, 1, n),
-                         lambda b_, h_: (b_, h_ // group, 0, 0)),
-            pl.BlockSpec((1, 1, n, d),
-                         lambda b_, h_: (b_, h_ // group, 0, 0)),
-            pl.BlockSpec((1, 1, 1, n),
-                         lambda b_, h_: (b_, h_ // group, 0, 0)),
-        ],
-        out_specs=[
-            pl.BlockSpec((1, 1, n, d), lambda b_, h_: (b_, h_, 0, 0)),
-            pl.BlockSpec((1, 1, n, 1), lambda b_, h_: (b_, h_, 0, 0)),
-        ],
-        out_shape=[
-            jax.ShapeDtypeStruct((b, h, n, d), q.dtype),
-            jax.ShapeDtypeStruct((b, h, n, 1), jnp.float32),
-        ],
-        compiler_params=pltpu.CompilerParams(
-            dimension_semantics=("parallel", "parallel"),
-            vmem_limit_bytes=vmem_limit),
-        interpret=use_interpret_mode(),
-    )(q, k.values, ks_row, v.values, vs_row)
-    return o, lse
-
-
-def requantize_fp8_to_int8(t: QuantizedTensor) -> QuantizedTensor:
-    """fp8 storage -> int8 compute transcode (one XLA elementwise pass).
-
-    fp8 (e4m3) has no native MXU path on v5e, so fp8-KV scores paid a
-    per-dot dequant chain (69-84 TF through subrow, r4_fp8_subrow.log).
-    Re-quantising the payload per row onto int8 lets fp8-STORED caches ride
-    the proven int8-MXU subrow dots; the pass is O(n*d) against the O(n^2*d)
-    attention it feeds.  Accuracy is bounded by the fp8 storage itself
-    (e4m3's 3-bit mantissa < int8's 7 bits per row)."""
-    vf = t.values.astype(jnp.float32)
-    amax = jnp.max(jnp.abs(vf), axis=-1, keepdims=True)
-    s = jnp.where(amax == 0, 1.0, amax / 127.0)
-    q8 = jnp.clip(jnp.round(vf / s), -127, 127).astype(jnp.int8)
-    return QuantizedTensor(q8, t.scales * s)
-
-
-def flash_attention_kv_int8(
-    q: Array, k: QuantizedTensor, v: QuantizedTensor,
-    causal: bool = False, sm_scale: Optional[float] = None,
-    block_q: int = 1024, block_k: int = 1024,
-):
-    """Flash attention with int8-quantised KV-cache (inference path).
-
-    q: (B, H, Nq, D); k/v payloads (B, H, Nkv, D) int8 with scales
-    (B, H, Nkv, 1).  Returns (o, lse).
-    """
-    b, h, n_q, d = q.shape
-    n_kv = k.values.shape[2]
-    scale = sm_scale if sm_scale is not None else 1.0 / (d**0.5)
-    if d > 128:   # scoped-vmem headroom (see flash_attention._pick_blocks)
-        block_q = min(block_q, 512)
-    bq = largest_divisor_block(n_q, block_q, 8)
-    bk = largest_divisor_block(n_kv, block_k, 8)
-    if bq is None or bk is None:
-        # jnp fallback, still fused by XLA
-        kd = k.dequantize(q.dtype)
-        vd = v.dequantize(q.dtype)
-        from .flash_attention import _reference_fwd_with_lse
-
-        return _reference_fwd_with_lse(q, kd, vd, causal, scale)
-
-    # causal self-attention at subrow-eligible shapes: whole quantized row
-    # VMEM-resident, no online softmax.  With the rescale chain gone the
-    # int8 x int8 MXU scores dot (2x bf16 MACs on v5e) plus halved K/V
-    # bytes make int8 prefill FASTER than the best bf16 path at every
-    # eligible seq: 136.7/159.2/166.8 TF at 2/4/8K vs bf16 subrow
-    # 126.8/135.7/145.9 (battery_logs/r4_int8_subrow.log) — vs 0.96-0.98x
-    # for the r3 loop schedule.  Envelope mirrors the bf16 _subrow_ok gate.
-    # fp8 payloads have no native MXU path on v5e (per-dot dequant through
-    # subrow measured 69-84 TF, r4_fp8_subrow.log) — but a one-pass
-    # fp8->int8 TRANSCODE (requantize_fp8_to_int8) lets fp8-STORED caches
-    # ride the int8-MXU dots: 110/153/158 TF at 2/4/8K incl. the transcode
-    # vs 42/51/56 on the old loop route (r5_fp8trans2.log, 2.6-3.0x).
-    if (causal and n_q == n_kv and d == 128 and 1024 <= n_q <= 8192
-            and n_q % 512 == 0):
-        from .flash_attention import _subrow_params
-
-        if k.values.dtype != jnp.int8:
-            k = requantize_fp8_to_int8(k)
-            v = requantize_fp8_to_int8(v)
-        sub, lim = _subrow_params(n_q)
-        if n_q > 4096:
-            # the bf16-tuned 64MB @8K does NOT fit this kernel (the
-            # in-kernel q requantize adds int8+f32 whole-row intermediates;
-            # Mosaic compile fails, r5_pad_fp8_2lvl.log) — 8K keeps the
-            # r4-proven 100MB envelope (166.8 TF, r4_int8_subrow.log)
-            lim = 100 * 1024 * 1024
-        return _kv8_flash_subrow(q, k, v, sm_scale=scale, sub=sub,
-                                 vmem_limit=lim)
-
-    # causal self-attention at loop-tileable shapes: the q-major loop
-    # schedule (no skipped grid steps / branches; measured winner, see
-    # battery_logs/r3_measure*).  The manual DMA slices need sublane/lane
-    # alignment (block % 128, d % 128) — odd shapes keep the grid kernel
-    # (a 327-row int8 slice fails tpu.memref_slice at compile).
-    if (causal and n_q == n_kv and n_q % bq == 0 and bq % 128 == 0
-            and bq >= 128 and d == 128):
-        return _kv8_flash_loop(q, k, v, sm_scale=scale, block_q=bq)
-
-    # Fold log2(e) into the scale: the kernel's online softmax runs in exp2
-    # (VPU-native); l is invariant, lse recovered as m*ln2 + log(l).
-    from .flash_attention import LOG2E
-
-    q = q * jnp.asarray(scale * LOG2E, q.dtype)
-    num_kv = cdiv(n_kv, bk)
-
-    if causal:
-        def kv_index(b_, h_, q_, k_):
-            last = ((q_ + 1) * bq - 1) // bk
-            return (b_, h_, jnp.minimum(k_, last), 0)
-    else:
-        def kv_index(b_, h_, q_, k_):
-            return (b_, h_, k_, 0)
-
-    # int8 payloads run the scores dot on the MXU in int8 x int8 (q is
-    # quantised per-row in-kernel); fp8 has no native MXU path on v5e and
-    # keeps the dequant-to-activation-dtype dot.
-    int8_mxu = k.values.dtype == jnp.int8
-    kernel = functools.partial(
-        _kv8_fwd_kernel, causal=causal, block_q=bq, block_k=bk, num_kv=num_kv,
-        int8_mxu=int8_mxu,
-    )
-    o, lse = pl.pallas_call(
-        kernel,
-        grid=(b, h, cdiv(n_q, bq), num_kv),
-        in_specs=[
-            pl.BlockSpec((1, 1, bq, d), lambda b_, h_, q_, k_: (b_, h_, q_, 0)),
-            pl.BlockSpec((1, 1, bk, d), kv_index),
-            pl.BlockSpec((1, 1, bk, 1), kv_index),
-            pl.BlockSpec((1, 1, bk, d), kv_index),
-            pl.BlockSpec((1, 1, bk, 1), kv_index),
-        ],
-        out_specs=[
-            pl.BlockSpec((1, 1, bq, d), lambda b_, h_, q_, k_: (b_, h_, q_, 0)),
-            pl.BlockSpec((1, 1, bq, 1), lambda b_, h_, q_, k_: (b_, h_, q_, 0)),
-        ],
-        out_shape=[
-            jax.ShapeDtypeStruct((b, h, n_q, d), q.dtype),
-            jax.ShapeDtypeStruct((b, h, n_q, 1), jnp.float32),
-        ],
-        scratch_shapes=[
-            pltpu.VMEM((bq, 1), jnp.float32),
-            pltpu.VMEM((bq, 1), jnp.float32),
-            pltpu.VMEM((bq, d), jnp.float32),
-        ] + ([
-            pltpu.VMEM((bq, d), jnp.int8),       # q8 (int8-MXU path only)
-            pltpu.VMEM((bq, 1), jnp.float32),    # q row scales
-        ] if int8_mxu else []),
-        compiler_params=pltpu.CompilerParams(
-            dimension_semantics=("parallel", "parallel", "parallel", "arbitrary"),
-        ),
-        interpret=use_interpret_mode(),
-    )(q, k.values, k.scales, v.values, v.scales)
-    return o, lse
-
-
-def quantize_kv(k: Array, v: Array) -> tuple[QuantizedTensor, QuantizedTensor]:
-    """Per-token int8 quantisation of a KV-cache: (B,H,N,D) -> payload+scales."""
-    return quantize_int8(k, axis=-1), quantize_int8(v, axis=-1)
+    acc = jnp.dot(x, w.values.astype(x.dtype),
+                  preferred_element_type=jnp.float32)
+    return (acc * w.scales).astype(x.dtype)
 
 
 def quantize_model_weights(model, dtype=jnp.int8, min_params: int = 0):

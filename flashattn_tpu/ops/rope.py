@@ -7,9 +7,9 @@ q/k vectors themselves: the KV cache stores post-rotation keys, so decode
 steps need no position-embedding lookup and extrapolate beyond training
 lengths far better.
 
-TPU shape notes: the rotation is a pure elementwise op on (B, H, S, D)
+Shape notes: the rotation is a pure elementwise op on (B, H, S, D)
 activations — XLA fuses it into the surrounding projection matmuls, so it
-needs no Pallas kernel; the flash-attention kernel is position-agnostic
+needs no kernel; the flash-attention kernel is position-agnostic
 (rotation happens before Q/K enter it).  Pairing uses the GPT-NeoX
 "rotate-half" convention (first D/2 dims paired with last D/2), which keeps
 the lane layout contiguous instead of interleaving even/odd lanes.

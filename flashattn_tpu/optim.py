@@ -1,6 +1,6 @@
 """Pytree optimizers: SGD, Adam, AdamW.
 
-TPU-native re-design of reference ``minitorch/optim.py`` (Optimizer:10,
+JAX re-design of reference ``minitorch/optim.py`` (Optimizer:10,
 Adam.step:50-79, SGD:140-151).  The reference mutates ``Parameter.value`` in
 a Python loop -- one kernel launch per tensor op per parameter (SURVEY.md
 §3.1).  Here an optimizer is a *pure function over the model pytree*: the
@@ -175,7 +175,7 @@ class Adafactor:
     """Adafactor (Shazeer & Stern 2018): Adam-quality updates with the
     second moment FACTORED into row/column statistics for matrix-shaped
     parameters — optimizer memory drops from 2x params (Adam) to ~1x per
-    factored dim (the TPU-classic memory saver; pairs with ZeRO and remat
+    factored dim (the classic large-model memory saver; pairs with ZeRO and remat
     in the memory ladder).
 
     The reference ships only Adam/SGD (minitorch/optim.py); this extends

@@ -1,10 +1,10 @@
 """Device-mesh construction helpers.
 
 The reference is single-process / single-GPU with no distribution of any kind
-(SURVEY.md §2.3); this module is the green-field TPU-native capability: a
-named ``jax.sharding.Mesh`` over which DP (batch), TP (heads/FFN) and SP
-(sequence/ring) axes are laid out.  Within one slice the axes ride ICI; the
-"data" axis is the one to map onto DCN across hosts.
+(SURVEY.md §2.3); this module adds it: a named ``jax.sharding.Mesh`` over
+which DP (batch), TP (heads/FFN) and SP (sequence/ring) axes are laid out.
+The cards of one host reach each other all to all over NVLink at one rate,
+so the mesh's shape follows the algorithm alone.
 """
 
 from __future__ import annotations
@@ -34,7 +34,7 @@ def create_mesh(shape: Sequence[int], names: Sequence[str],
 
 def default_mesh(n_devices: Optional[int] = None,
                  tp_size: Optional[int] = None) -> Mesh:
-    """A (data, model) mesh: TP over the fast (minor/ICI) axis, DP over the rest.
+    """A (data, model) mesh: TP over the minor axis, DP over the rest.
 
     ``tp_size`` defaults to min(n_devices, 4) rounded down to a divisor.
     """

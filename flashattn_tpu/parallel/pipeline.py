@@ -2,10 +2,10 @@
 
 Green-field capability — the reference runs its 4 transformer layers
 sequentially in one process (``modules_transfomer.py:454-457``, SURVEY.md
-§2.3 "Pipeline parallel: No").  The TPU-native form is *SPMD pipelining*:
+§2.3 "Pipeline parallel: No").  The form here is *SPMD pipelining*:
 every device runs the SAME program under ``shard_map``; each holds the
 parameters of one pipeline stage (a contiguous slice of the layer stack),
-activations flow stage-to-stage with ``jax.lax.ppermute`` over the ICI ring,
+activations flow stage-to-stage with ``jax.lax.ppermute`` around the ring,
 and microbatching fills the pipeline so at steady state all stages compute
 concurrently.  ``ppermute`` is AD-transposable, so ``jax.grad`` through
 :func:`pipeline_apply` yields the reverse (backward) pipeline for free — no
@@ -102,9 +102,9 @@ def pipeline_apply(
     )
     out_specs = P(None, data_axis)
 
-    # check_vma=False: stage_fn may contain pallas_call (fused layernorm,
-    # flash attention) whose out_shape carries no vma annotation — same
-    # setting as the sharded-attention shims.
+    # check_vma=False: stage_fn may contain pallas_call (flash attention)
+    # whose out_shape carries no vma annotation — same setting as the
+    # sharded-attention shims.
     @functools.partial(
         shard_map, mesh=mesh, in_specs=in_specs, out_specs=out_specs,
         check_vma=False,
@@ -136,7 +136,7 @@ def pipeline_apply(
                               outs, jnp.clip(mb_idx, 0, M - 1), axis=0,
                               keepdims=False)),
                 jnp.clip(mb_idx, 0, M - 1), axis=0)
-            # rotate activations to the next stage over the ICI ring
+            # rotate activations to the next stage around the ring
             buf = jax.lax.ppermute(y, axis, fwd_perm)
             return buf, outs
 

@@ -1,18 +1,18 @@
 """Multi-chip attention: head/batch-parallel shard_map and ring attention.
 
 Nothing to mirror in the reference (it is single-GPU, SURVEY.md §2.3); this
-implements the two standard TPU shardings for attention:
+implements the two standard multi-device shardings for attention:
 
 * :func:`sharded_flash_attention` -- batch over the DP axis, heads over the
   TP axis, zero communication inside attention (the collectives happen in the
-  surrounding projections, inserted by GSPMD).  ``pallas_call`` cannot be
-  auto-partitioned by GSPMD, so this is the shard_map shim that makes the
-  Pallas kernel SPMD.
+  surrounding projections, inserted by GSPMD).  Neither ``pallas_call`` nor
+  cuDNN's custom call can be auto-partitioned by GSPMD, so this is the
+  shard_map shim that makes the attention routes SPMD.
 * :func:`ring_flash_attention` -- sequence (context) parallelism: K/V shards
   rotate around the ``seq`` axis ring via ``jax.lax.ppermute`` while each
-  device runs the local Pallas flash kernel, partial results merged with the
-  online-softmax lse combine.  Point-to-point neighbor transfers ride ICI and
-  overlap with compute.
+  device runs local flash attention, partial results merged with the
+  online-softmax lse combine.  The neighbour transfers are NCCL
+  point-to-point sends, which XLA can overlap with compute.
 """
 
 from __future__ import annotations
@@ -25,8 +25,9 @@ import jax.numpy as jnp
 from jax.sharding import Mesh, PartitionSpec as P
 
 from ..ops.flash_attention import (
-    _flash_bwd,
     flash_attention,
+    flash_attention_bwd,
+    flash_attention_varlen,
     flash_attention_with_lse,
 )
 
@@ -51,8 +52,6 @@ def sharded_flash_attention(
     prefill.  ``window`` = sliding-window attention (static; seq stays
     unsharded here so the window never crosses a shard boundary).
     """
-    from ..ops.flash_attention import flash_attention_varlen
-
     spec = P(batch_axis, head_axis, None, None)
 
     if kv_lengths is None:
@@ -89,8 +88,8 @@ def sharded_paged_attention(
     sm_scale: Optional[float] = None,
     window: Optional[int] = None,
 ) -> Array:
-    """Paged decode with KV-head-sharded page pools (BASELINE configs[4]
-    "tensor-sharded weights+KV").  Each model-axis shard owns a slice of the
+    """Paged decode with KV-head-sharded page pools (tensor-sharded weights
+    and KV).  Each model-axis shard owns a slice of the
     KV heads AND their pages; page tables/lengths replicate.  Zero
     communication inside attention — the collectives live in the projections.
     """
@@ -159,7 +158,8 @@ def ring_flash_attention(
     the dense kernel.
 
     DIFFERENTIABLE: the custom vjp runs the reverse ring — per (q-shard,
-    kv-block) pair the split dKV/dQ Pallas kernels produce partial grads;
+    kv-block) pair the blockwise backward (:func:`flash_attention_bwd`
+    against the global (o, lse)) produces partial grads;
     dK/dV accumulators travel around the ring WITH their blocks and arrive
     home after a full revolution (the blockwise-parallel transformer /
     ring-attention backward).
@@ -242,18 +242,12 @@ def _ring_fa_bwd(causal, mesh, seq_axis, batch_axis, head_axis, scale,
         perm = [(i, (i + 1) % n_dev) for i in range(n_dev)]
 
         def pair_bwd(k_blk, v_blk, blk_causal):
-            # blockwise FA backward against the GLOBAL (o, lse): exactly the
-            # single-chip split-kernel bwd on one (q-shard, kv-block) pair.
-            # Block sizes must DIVIDE the shard (like the fwd's _pick_blocks):
-            # a cdiv grid would read past the shard — undefined contents on
-            # TPU pollute dk/dv.  Fall back to full-dim blocks (always legal).
-            from ..ops.flash_attention import _pick_blocks
-
-            bq, bk = _pick_blocks(q_.shape[2], k_blk.shape[2], 512, 1024)
-            return _flash_bwd(q_, k_blk, v_blk, o_, lse_, do_,
-                              causal=blk_causal, sm_scale=scale,
-                              block_q=bq or q_.shape[2],
-                              block_k=bk or k_blk.shape[2])
+            # blockwise FA backward against the GLOBAL (o, lse): the
+            # single-device backward on one (q-shard, kv-block) pair,
+            # accumulated in f32 around the ring
+            grads = flash_attention_bwd(q_, k_blk, v_blk, o_, lse_, do_,
+                                        blk_causal, scale)
+            return tuple(g.astype(jnp.float32) for g in grads)
 
         # Diagonal block: local triangle (or dense when not causal).
         dq, dk_acc, dv_acc = pair_bwd(k_, v_, causal)

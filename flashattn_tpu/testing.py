@@ -1,6 +1,6 @@
 """Table-driven property-test op cases.
 
-TPU-native analog of the reference's ``minitorch/testing.py`` (MathTest /
+JAX analog of the reference's ``minitorch/testing.py`` (MathTest /
 MathTestVariable, testing.py:10-213), whose ``_comp_testing()`` tables drive
 the property tests in ``tests/test_tensor_general.py:41-150``.  The reference
 needs *two* classes because scalars and Tensors have different APIs; here a

@@ -1,6 +1,6 @@
 """Jitted training step + loss, single-chip and multi-chip.
 
-TPU-native re-design of the reference's training inner loop
+JAX re-design of the reference's training inner loop
 (``project/run_machine_translation.py``: loss_fn:164-192, train:195-237).
 The reference runs hundreds of host-dispatched kernel launches per batch
 (SURVEY.md §3.1 "process/device boundary"); here the whole
@@ -123,11 +123,11 @@ def make_distill_loss(teacher: Any = None, alpha: float = 1.0,
 
 def make_mixed_precision_loss(loss_fn: Callable[..., Array] = lm_loss,
                               compute_dtype=jnp.bfloat16) -> Callable[..., Array]:
-    """bf16-compute / f32-master-weight training (the standard TPU recipe).
+    """bf16-compute / f32-master-weight training (the standard mixed recipe).
 
     Wraps any ``loss_fn(model, ...)``: parameters are cast to
     ``compute_dtype`` *inside* the differentiated function, so every
-    forward/backward matmul feeds the MXU in bf16 (~2x f32 MAC throughput)
+    forward/backward matmul runs on the bf16 tensor cores
     while ``jax.grad`` differentiates through the cast and delivers f32
     gradients against the f32 master weights — Adam moments and the update
     stay full precision.  No loss scaling needed: bf16 keeps f32's exponent
@@ -240,9 +240,9 @@ def make_train_scan(opt: Any,
     tokens/targets/loss_mask carry a leading (n_steps,) axis; runs every step
     device-side in ONE dispatch and returns (model, opt_state, losses).
 
-    This is the relay/host-latency amortiser: a per-step Python loop pays the
-    host->device round trip (tens of ms on remote-execution setups) once per
-    batch; scanning K steps pays it once per K batches.  The reference's
+    This is the host-latency amortiser: a per-step Python loop pays the
+    dispatch and sync cost once per batch; scanning K steps pays it once per
+    K batches.  The reference's
     train loop (run_machine_translation.py:195-237) is the opposite extreme —
     hundreds of dispatches per batch.
     """
@@ -354,7 +354,7 @@ class ShardedTrainer:
         """K train steps in ONE dispatch over the mesh: arrays carry a
         leading (n_steps,) axis, batches stay sharded over the data axis
         (spec ``P(None, data)``), and the whole lax.scan runs device-side —
-        the multi-host analogue of ``make_train_scan``'s relay amortiser.
+        the multi-device analogue of ``make_train_scan``'s amortiser.
         Returns the (n_steps,) per-step losses.  With ``key=None`` a fresh
         key is drawn from the trainer's internal stream per call."""
         stack_sharding = NamedSharding(self.mesh, P(None, self.data_axis))

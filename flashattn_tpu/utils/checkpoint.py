@@ -1,7 +1,7 @@
 """Checkpoint / resume for model + optimizer state.
 
 The reference has NO weight checkpointing (SURVEY.md §5: only the tokenizer
-and eval artifacts persist); this fills that gap with orbax, the TPU-native
+and eval artifacts persist); this fills that gap with orbax, JAX's
 checkpointing library (async-safe, sharding-aware on restore).
 """
 

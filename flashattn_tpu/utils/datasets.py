@@ -2,7 +2,7 @@
 
 Same six dataset *names and decision boundaries* as the reference
 (``minitorch/datasets.py:88-95``) — the boundary rules are the parity
-surface consumed by the classifier workload — but built TPU-idiomatically:
+surface consumed by the classifier workload — but built array-first:
 one vectorised numpy point cloud and a vectorised label rule per dataset,
 instead of per-point Python loops.
 """

@@ -4,7 +4,7 @@ The reference *declares* a NaN/Inf checker and a 2-norm probe but never
 implements them (``src/includes/cuda_util.h:41-49``: ``check_nan_inf`` /
 ``CHECK_NAN_INF`` / ``check_2norm``); its debugging culture is commented-out
 prints (``cuda_kernel_ops.py:644-659``).  This module makes that surface real
-the TPU way (SURVEY.md §5): ``checkify`` for jit-safe functional error checks,
+the JAX way (SURVEY.md §5): ``checkify`` for jit-safe functional error checks,
 ``jax.debug.print`` for in-graph probes, and a host-side pytree sweep for
 post-hoc inspection.
 """

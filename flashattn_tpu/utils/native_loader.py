@@ -9,26 +9,34 @@ one-time corpus registration, C++ collate, background prefetch thread.
 from __future__ import annotations
 
 import ctypes
+import fcntl
 import os
 import subprocess
 from typing import List, Sequence, Tuple
 
 import numpy as np
 
-_NATIVE_DIR = os.path.join(os.path.dirname(__file__), "..", "..", "native")
-_LIB_PATH = os.path.abspath(os.path.join(_NATIVE_DIR, "libdataloader.so"))
+_NATIVE_DIR = os.path.abspath(
+    os.path.join(os.path.dirname(__file__), "..", "..", "native"))
+_LIB_PATH = os.path.join(_NATIVE_DIR, "libdataloader.so")
+_NGRAM_LIB_PATH = os.path.join(_NATIVE_DIR, "libngram.so")
 
 
-def build_native(force: bool = False) -> str:
-    """Compile the shared libraries if needed (replaces compile_cuda.sh).
-    make runs unconditionally — its dependency rules are the staleness
-    check, so an edited .cc never serves a stale committed binary."""
-    try:
-        subprocess.run(["make", "-C", os.path.abspath(_NATIVE_DIR)],
-                       check=True, capture_output=True)
-    except Exception:
-        if force or not os.path.exists(_LIB_PATH):
-            raise  # no toolchain AND no prebuilt binary
+def build_native() -> str:
+    """Build the shared libraries from ``native/Makefile`` (they are not
+    committed) and return the data loader's path.  make runs every time --
+    its dependency rules are the staleness check -- under a lock on the
+    Makefile, so concurrent test workers never load a half-written library.
+    A failed build raises; no earlier binary is used instead."""
+    with open(os.path.join(_NATIVE_DIR, "Makefile")) as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)
+        try:
+            r = subprocess.run(["make", "-C", _NATIVE_DIR],
+                               capture_output=True, text=True)
+        finally:
+            fcntl.flock(lock, fcntl.LOCK_UN)
+    if r.returncode != 0:
+        raise RuntimeError(f"building native/ failed:\n{r.stdout}{r.stderr}")
     return _LIB_PATH
 
 
@@ -105,19 +113,13 @@ class NativeDataLoader:
 
 # -- native prompt-lookup proposer (native/ngram.cc) -------------------------
 
-_NGRAM_LIB_PATH = os.path.abspath(os.path.join(_NATIVE_DIR, "libngram.so"))
 _ngram_lib = None
 
 
 def _load_ngram_lib() -> ctypes.CDLL:
     global _ngram_lib
     if _ngram_lib is None:
-        try:  # make's dependency rules are the staleness check
-            subprocess.run(["make", "-C", os.path.abspath(_NATIVE_DIR)],
-                           check=True, capture_output=True)
-        except Exception:
-            if not os.path.exists(_NGRAM_LIB_PATH):
-                raise
+        build_native()
         lib = ctypes.CDLL(_NGRAM_LIB_PATH)
         i32p = ctypes.POINTER(ctypes.c_int32)
         lib.ngram_propose.restype = ctypes.c_int32

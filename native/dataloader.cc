@@ -1,7 +1,7 @@
 // Native data-loader: tokenized-corpus batch collation with background
 // prefetch.
 //
-// TPU-native runtime counterpart of the reference's host-side data path
+// Native runtime counterpart of the reference's host-side data path
 // (project/run_machine_translation.py:90-161 collate_batch — a per-example
 // Python loop that pads/shifts/masks on the critical path of every training
 // step).  Here the collate runs in C++ over a pre-tokenized corpus that is

@@ -1,5 +1,5 @@
 """Module tree semantics (mirrors reference tests/test_module.py) plus
-pytree/jit/grad behaviour unique to the TPU build."""
+pytree/jit/grad behaviour unique to the JAX build."""
 
 import jax
 import jax.numpy as jnp

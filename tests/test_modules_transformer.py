@@ -2,7 +2,7 @@
 
 The reference checks its modules against torch with copied weights; here the
 "reference" attention path (pure jnp op-graph) is the oracle and the fused /
-flash paths must agree with it on identical weights -- same role, TPU-native
+flash paths must agree with it on identical weights -- same role, JAX-native
 oracle (SURVEY.md §4).
 """
 
@@ -25,13 +25,28 @@ def test_mha_projection_shapes():
 
 
 @pytest.mark.parametrize("causal", [False, True])
-@pytest.mark.parametrize("impl", ["flash", "fused_softmax"])
+@pytest.mark.parametrize("impl", ["flash", "fused_softmax", "triton"])
 def test_mha_impls_agree(causal, impl):
     base = MultiHeadAttention(64, 4, causal=causal, p_dropout=0.0,
                               attn_impl="reference", key=jax.random.PRNGKey(2))
     other = base.replace(attn_impl=impl)
     x = jax.random.normal(jax.random.PRNGKey(3), (2, 32, 64))
     np.testing.assert_allclose(base(x), other(x), atol=1e-5, rtol=1e-4)
+
+
+@pytest.mark.parametrize("impl,flash,paged", [
+    ("flash", "auto", "auto"),
+    ("cudnn", "cudnn", "auto"),
+    ("triton", "triton", "triton"),
+    ("fused_softmax", "auto", "auto"),
+    ("reference", "reference", "reference"),
+])
+def test_attn_impl_names_the_routes(impl, flash, paged):
+    """One field picks the attention route: the flash calls' ``impl`` and
+    the paged-decode calls' ``impl``."""
+    mha = MultiHeadAttention(32, 4, causal=True, attn_impl=impl,
+                             key=jax.random.PRNGKey(0))
+    assert (mha._flash_route, mha._paged_route) == (flash, paged)
 
 
 def test_mha_manual_oracle():
@@ -68,11 +83,11 @@ def test_feedforward_shapes_and_gelu():
 @pytest.mark.parametrize("impl", ["flash", "fused_softmax"])
 def test_transformer_layer_impls_agree(impl):
     ref = TransformerLayer(64, 4, p_dropout=0.0, attn_impl="reference",
-                           use_fused_layernorm=False, key=jax.random.PRNGKey(8))
+                           key=jax.random.PRNGKey(8))
     other = jax.tree_util.tree_unflatten(
         jax.tree_util.tree_structure(
             TransformerLayer(64, 4, p_dropout=0.0, attn_impl=impl,
-                             use_fused_layernorm=True, key=jax.random.PRNGKey(8))),
+                             key=jax.random.PRNGKey(8))),
         jax.tree_util.tree_leaves(ref),
     )
     x = jax.random.normal(jax.random.PRNGKey(9), (2, 32, 64))

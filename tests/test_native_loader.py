@@ -88,3 +88,14 @@ def test_ngram_propose_native_matches_python():
         want = _ngram_propose(ctx, k, n)
         got = ngram_propose_native(ctx, k, n)
         assert got == want, (ctx, k, n, got, want)
+
+
+def test_failed_build_raises(tmp_path, monkeypatch):
+    """A build that fails raises; no earlier binary is loaded instead."""
+    from flashattn_tpu.utils import native_loader
+
+    (tmp_path / "Makefile").write_text("all:\n\tfalse\n")
+    (tmp_path / "libdataloader.so").write_text("stale")
+    monkeypatch.setattr(native_loader, "_NATIVE_DIR", str(tmp_path))
+    with pytest.raises(RuntimeError, match="building native/ failed"):
+        native_loader.build_native()

@@ -1,5 +1,6 @@
-"""Fused Pallas layernorm vs jnp oracle (mirrors reference
-kernel_tests/test_layernorm_fw.py / _bw.py and tests around LayerNorm)."""
+"""LayerNorm (the XLA-fused op, f32 statistics) vs the jnp oracle (mirrors
+reference kernel_tests/test_layernorm_fw.py / _bw.py and tests around
+LayerNorm)."""
 
 import jax
 import jax.numpy as jnp

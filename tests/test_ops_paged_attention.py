@@ -1,4 +1,5 @@
-"""Paged attention decode kernel vs dense oracle."""
+"""Paged attention decode kernel (Triton, interpreted here) vs the dense
+oracle, and the route choice."""
 
 import jax
 import jax.numpy as jnp
@@ -81,33 +82,33 @@ class TestChunkedPaged:
         table = jnp.arange(n_pages, dtype=jnp.int32).reshape(b, pps)
         return kp, vp, table, ks[2]
 
-    @pytest.mark.parametrize("pipelined", [True, False])
+    @pytest.mark.parametrize("page", [8, 16])
     @pytest.mark.parametrize("window", [None, 7])
-    def test_chunk_vs_oracle(self, pipelined, window):
+    def test_chunk_vs_oracle(self, page, window):
         import jax
 
-        kp, vp, table, key = self._setup()
+        kp, vp, table, key = self._setup(page=page, pps=64 // page)
         chunk = 4
         q = jax.random.normal(key, (3, chunk, 4, 128))
         lengths = jnp.asarray([45, chunk, 33], jnp.int32)  # incl. the chunk
-        got = paged_attention(q, kp, vp, lengths, table, pipelined=pipelined,
-                              window=window)
+        got = paged_attention(q, kp, vp, lengths, table, window=window,
+                              impl="triton")
         want = paged_attention_reference(q, kp, vp, lengths, table,
                                          window=window)
         assert got.shape == (3, chunk, 4, 128)
         np.testing.assert_allclose(got, want, atol=2e-5, rtol=1e-4)
 
-    @pytest.mark.parametrize("pipelined", [True, False])
-    def test_last_chunk_row_equals_single_token(self, pipelined):
+    @pytest.mark.parametrize("page", [8, 16])
+    def test_last_chunk_row_equals_single_token(self, page):
         import jax
 
-        kp, vp, table, key = self._setup()
+        kp, vp, table, key = self._setup(page=page, pps=64 // page)
         chunk = 3
         q = jax.random.normal(key, (3, chunk, 4, 128))
         lengths = jnp.asarray([45, 17, 33], jnp.int32)
-        got = paged_attention(q, kp, vp, lengths, table, pipelined=pipelined)
+        got = paged_attention(q, kp, vp, lengths, table, impl="triton")
         single = paged_attention(q[:, -1], kp, vp, lengths, table,
-                                 pipelined=pipelined)
+                                 impl="triton")
         np.testing.assert_allclose(got[:, -1], single, atol=2e-5, rtol=1e-4)
 
     def test_chunk_int8_pages(self):
@@ -126,8 +127,8 @@ class TestChunkedPaged:
 
     @pytest.mark.parametrize("window", [None, 200])
     def test_chunk_int8_pages_pipelined(self, window):
-        """d=128 + page=128 int8 pools ride the pipelined DMA walk with
-        scales streamed alongside the payload pages."""
+        """d=128 + page=128 int8 pools (the serving shape): one page per
+        loop step, scales applied after the dots."""
         import jax
 
         kp, vp, table, key = self._setup(d=128, page=128, pps=4)
@@ -138,12 +139,49 @@ class TestChunkedPaged:
         q = jax.random.normal(key, (3, 4, 4, 128))
         lengths = jnp.asarray([450, 8, 331], jnp.int32)
         got = paged_attention(q, kp8, vp8, lengths, table,
-                              k_scales=ks, v_scales=vs, pipelined=True,
+                              k_scales=ks, v_scales=vs, impl="triton",
                               window=window)
         want = paged_attention_reference(q, kp8, vp8, lengths, table,
                                          k_scales=ks, v_scales=vs,
                                          window=window)
         np.testing.assert_allclose(got, want, atol=2e-2, rtol=2e-2)
+
+
+@pytest.mark.parametrize("window", [None, 40])
+def test_chunk_fp8_pages(window):
+    """fp8-e4m3 pages with per-token scales, a chunk spanning several row
+    blocks of the kernel."""
+    from flashattn_tpu.models.transformer import _quantize_kv
+
+    ks = jax.random.split(jax.random.PRNGKey(8), 3)
+    kp = jax.random.normal(ks[0], (2, 12, 16, 32))
+    vp = jax.random.normal(ks[1], (2, 12, 16, 32))
+    kq, ksc = _quantize_kv(kp, jnp.float8_e4m3fn)
+    vq, vsc = _quantize_kv(vp, jnp.float8_e4m3fn)
+    table = jnp.arange(12, dtype=jnp.int32).reshape(2, 6)
+    q = jax.random.normal(ks[2], (2, 40, 4, 32))
+    lengths = jnp.asarray([90, 41], jnp.int32)
+    got = paged_attention(q, kq, vq, lengths, table, k_scales=ksc,
+                          v_scales=vsc, window=window, impl="triton")
+    want = paged_attention_reference(q, kq, vq, lengths, table, ksc, vsc,
+                                     window=window)
+    np.testing.assert_allclose(got, want, atol=2e-5, rtol=1e-4)
+
+
+def test_route_choice():
+    from flashattn_tpu.ops.paged_attention import choose_paged_impl
+
+    assert choose_paged_impl(128, 128, platform="gpu") == "triton"
+    assert choose_paged_impl(64, 16, platform="gpu") == "triton"
+    # Triton needs power-of-two tiles: such shapes take the XLA gather
+    assert choose_paged_impl(8, 128, platform="gpu") == "reference"
+    assert choose_paged_impl(96, 128, platform="gpu") == "reference"
+    assert choose_paged_impl(128, 24, platform="gpu") == "reference"
+    # the interpreter takes every shape
+    assert choose_paged_impl(8, 24, platform="cpu") == "triton"
+    assert choose_paged_impl(8, 24, "reference", platform="cpu") == "reference"
+    with pytest.raises(ValueError, match="impl must be one of"):
+        choose_paged_impl(128, 128, "pallas")
 
 
 def test_model_extend_matches_sequential_decode():
@@ -153,7 +191,7 @@ def test_model_extend_matches_sequential_decode():
     import flashattn_tpu as ft
 
     model = ft.DecoderLM(64, 32, 4, 256, p_dropout=0.0, n_layer=2,
-                         attn_impl="reference",
+                         attn_impl="flash",
                          key=jax.random.PRNGKey(0)).eval()
     b, page, pps = 2, 8, 8
     pools_a = model.init_page_pools(b * pps + 1, page)

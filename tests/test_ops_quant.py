@@ -1,18 +1,16 @@
-"""Quantization tier tests: int8 tensors, weight-only matmul, int8 KV attention."""
+"""Quantization tier tests: int8/fp8 tensors, the weight-only matmul, and
+quantised KV pages through the paged decode and serving routes."""
 
 import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from flashattn_tpu.ops.flash_attention import flash_attention_reference
 from flashattn_tpu.ops.quant import (
     QuantizedTensor,
-    flash_attention_kv_int8,
     int8_weight_only_matmul,
     quantize_int8,
     quantize_int8_stochastic,
-    quantize_kv,
 )
 
 
@@ -58,99 +56,96 @@ def test_int8_weight_only_matmul_ragged_fallback():
     np.testing.assert_allclose(out, x @ wq.dequantize(), atol=1e-4)
 
 
-@pytest.mark.parametrize("causal", [False, True])
-def test_flash_attention_kv_int8(causal):
-    b, h, n, d = 1, 2, 128, 32
-    ks = jax.random.split(jax.random.PRNGKey(5), 3)
-    q = jax.random.normal(ks[0], (b, h, n, d))
-    k = jax.random.normal(ks[1], (b, h, n, d))
-    v = jax.random.normal(ks[2], (b, h, n, d))
-    kq, vq = quantize_kv(k, v)
-    o, lse = flash_attention_kv_int8(q, kq, vq, causal)
-    # oracle: attention over the dequantised cache with q quantised the same
-    # way the kernel does (per-row symmetric int8 before the int8 MXU dot;
-    # rounding commutes with the scalar scale prefold, so quantising the raw
-    # q reproduces the kernel's grid exactly) -- isolates kernel error from
-    # quantisation error.
-    q_deq = quantize_int8(q, axis=-1).dequantize()
-    ref = flash_attention_reference(q_deq, kq.dequantize(), vq.dequantize(),
-                                    causal)
-    np.testing.assert_allclose(o, ref, atol=1e-4, rtol=1e-3)
-    # and the total error vs the fp cache stays within int8 noise
-    full = flash_attention_reference(q, k, v, causal)
-    assert float(jnp.max(jnp.abs(o - full))) < 0.15
+def test_int8_weight_only_matmul_bf16_activations():
+    """bf16 activations: f32 accumulation, bf16 result, scales after the dot."""
+    x = jax.random.normal(jax.random.PRNGKey(21), (8, 256)).astype(jnp.bfloat16)
+    w = jax.random.normal(jax.random.PRNGKey(22), (256, 64))
+    wq = quantize_int8(w, axis=0)
+    out = int8_weight_only_matmul(x, wq)
+    assert out.dtype == jnp.bfloat16
+    want = x.astype(jnp.float32) @ wq.dequantize()
+    np.testing.assert_allclose(np.asarray(out, np.float32), want, atol=5e-2,
+                               rtol=2e-2)
 
 
-def test_flash_attention_kv_int8_loop_multichunk_gqa():
-    """The quantized loop schedule with >1 interior DMA chunk and GQA
-    grouping (kv heads < q heads) matches the dequantised oracle."""
-    from flashattn_tpu.ops.quant import _kv8_flash_loop
-
-    b, hq, hkv, n, d = 1, 4, 2, 512, 32
-    ks = jax.random.split(jax.random.PRNGKey(9), 3)
-    q = jax.random.normal(ks[0], (b, hq, n, d))
-    k = jax.random.normal(ks[1], (b, hkv, n, d))
-    v = jax.random.normal(ks[2], (b, hkv, n, d))
-    kq, vq = quantize_kv(k, v)
-    o, lse = _kv8_flash_loop(q, kq, vq, sm_scale=1.0 / d**0.5, block_q=128)
-    q_deq = quantize_int8(q, axis=-1).dequantize()
-    ref = flash_attention_reference(q_deq, kq.dequantize(), vq.dequantize(),
-                                    True)
-    np.testing.assert_allclose(o, ref, atol=1e-4, rtol=1e-3)
+def test_int8_weight_only_matmul_converts_inside_the_product():
+    """The payload enters the dot as a convert of the int8 array (which XLA
+    fuses into the GEMM), never as a dequantised (values * scales) copy."""
+    x = jnp.ones((4, 64), jnp.bfloat16)
+    wq = quantize_int8(jnp.ones((64, 32)), axis=0)
+    text = str(jax.make_jaxpr(int8_weight_only_matmul)(x, wq))
+    assert "dot_general" in text
+    dot_line = next(l for l in text.splitlines() if "dot_general" in l)
+    # the scales multiply the (4, 32) product, not a (64, 32) weight copy
+    assert "f32[64,32]" not in text and "bf16[64,32]" in text, dot_line
 
 
-def test_flash_attention_kv_int8_subrow_gqa():
-    """The quantized subrow schedule (whole row resident, single-pass
-    softmax) matches the dequantised oracle, incl. GQA and fp8 payloads."""
-    from flashattn_tpu.ops.quant import _kv8_flash_subrow, quantize_fp8
-
-    b, hq, hkv, n, d = 1, 4, 2, 512, 32
-    ks = jax.random.split(jax.random.PRNGKey(19), 3)
-    q = jax.random.normal(ks[0], (b, hq, n, d))
-    k = jax.random.normal(ks[1], (b, hkv, n, d))
-    v = jax.random.normal(ks[2], (b, hkv, n, d))
-    kq, vq = quantize_kv(k, v)
-    o, lse = _kv8_flash_subrow(q, kq, vq, sm_scale=1.0 / d**0.5, sub=128)
-    q_deq = quantize_int8(q, axis=-1).dequantize()
-    ref = flash_attention_reference(q_deq, kq.dequantize(), vq.dequantize(),
-                                    True)
-    np.testing.assert_allclose(o, ref, atol=1e-4, rtol=1e-3)
-    # loop-vs-subrow schedule equivalence on the same quantized cache
-    from flashattn_tpu.ops.quant import _kv8_flash_loop
-
-    o_l, lse_l = _kv8_flash_loop(q, kq, vq, sm_scale=1.0 / d**0.5,
-                                 block_q=128)
-    np.testing.assert_allclose(o, o_l, atol=1e-5, rtol=1e-5)
-    np.testing.assert_allclose(lse, lse_l, atol=1e-5, rtol=1e-5)
-    # fp8 payloads flow through the same kernel (no int8-MXU path)
-    kf, vf = quantize_fp8(k, axis=-1), quantize_fp8(v, axis=-1)
-    o8, _ = _kv8_flash_subrow(q, kf, vf, sm_scale=1.0 / d**0.5, sub=128)
-    ref8 = flash_attention_reference(q, kf.dequantize(), vf.dequantize(),
-                                     True)
-    np.testing.assert_allclose(o8, ref8, atol=2e-2, rtol=2e-2)
+def test_int8_weight_only_matmul_grad_wrt_activations():
+    x = jax.random.normal(jax.random.PRNGKey(23), (4, 32))
+    wq = quantize_int8(jax.random.normal(jax.random.PRNGKey(24), (32, 16)),
+                       axis=0)
+    g = jax.grad(lambda a: jnp.sum(int8_weight_only_matmul(a, wq)))(x)
+    want = jnp.broadcast_to(jnp.sum(wq.dequantize(), axis=1), x.shape)
+    np.testing.assert_allclose(g, want, atol=1e-4, rtol=1e-4)
 
 
-def test_flash_attention_kv_int8_alignment_fallbacks():
-    """The quantized loop schedule needs 128-aligned blocks and head dims
-    for its DMA slices; unaligned shapes must keep the grid kernel and stay
-    correct (a 327-row int8 DMA slice fails Mosaic at compile)."""
-    for (n, d) in ((320, 32), (256, 64)):   # n%128!=0 / d%128!=0
-        q = jax.random.normal(jax.random.PRNGKey(10), (1, 2, n, d))
-        kq, vq = quantize_kv(q, q)
-        o, _ = flash_attention_kv_int8(q, kq, vq, True)
-        q_deq = quantize_int8(q, axis=-1).dequantize()
-        ref = flash_attention_reference(q_deq, kq.dequantize(),
-                                        vq.dequantize(), True)
-        np.testing.assert_allclose(o, ref, atol=1e-4, rtol=1e-3)
+@pytest.mark.parametrize("dtype", [jnp.int8, jnp.float8_e4m3fn])
+def test_kv_page_quantisation_bound(dtype):
+    """Per-token KV quantisation of the paged pools (models/transformer.py):
+    int8 within half a step of absmax/127, fp8 within e4m3's ~6%."""
+    from flashattn_tpu.models.transformer import _quantize_kv
+
+    t = jax.random.normal(jax.random.PRNGKey(25), (2, 5, 8, 32)) * 3.0
+    payload, scale = _quantize_kv(t, dtype)
+    assert payload.dtype == dtype and scale.shape == t.shape[:-1] + (1,)
+    back = payload.astype(jnp.float32) * scale
+    absmax = jnp.max(jnp.abs(t), -1, keepdims=True)
+    bound = absmax / 254.0 + 1e-6 if dtype == jnp.int8 else absmax * 0.07
+    assert bool((jnp.abs(back - t) <= bound).all())
 
 
-def test_flash_attention_kv_int8_ragged_fallback():
-    b, h, n, d = 1, 1, 37, 16
-    q = jax.random.normal(jax.random.PRNGKey(6), (b, h, n, d))
-    kq, vq = quantize_kv(q, q)
-    o, lse = flash_attention_kv_int8(q, kq, vq, True)
-    assert o.shape == q.shape
-    assert bool(jnp.isfinite(o).all())
+@pytest.mark.parametrize("dtype", [jnp.int8, jnp.float8_e4m3fn])
+def test_quantised_pages_close_to_full_precision(dtype):
+    """Decode over quantised pages stays within the quantisation bound of
+    decode over the same pages in f32 (the Triton route, interpreted)."""
+    from flashattn_tpu.models.transformer import _quantize_kv
+    from flashattn_tpu.ops.paged_attention import paged_attention
+
+    ks = jax.random.split(jax.random.PRNGKey(26), 3)
+    kp = jax.random.normal(ks[0], (2, 8, 16, 32))
+    vp = jax.random.normal(ks[1], (2, 8, 16, 32))
+    table = jnp.arange(8, dtype=jnp.int32).reshape(2, 4)
+    lengths = jnp.asarray([64, 21], jnp.int32)
+    q = jax.random.normal(ks[2], (2, 4, 32))
+    full = paged_attention(q, kp, vp, lengths, table, impl="triton")
+    kq, ksc = _quantize_kv(kp, dtype)
+    vq, vsc = _quantize_kv(vp, dtype)
+    quant = paged_attention(q, kq, vq, lengths, table, k_scales=ksc,
+                            v_scales=vsc, impl="triton")
+    tol = 0.03 if dtype == jnp.int8 else 0.15
+    assert float(jnp.max(jnp.abs(quant - full))) < tol
+
+
+def test_fp8_kv_pool_engine_matches_dense():
+    """An fp8 KV pool serves through the engine within fp8's bound of the
+    dense forward (prefill logits)."""
+    import flashattn_tpu as ft
+    from flashattn_tpu.serving import ContinuousBatchingEngine
+
+    model = ft.DecoderLM(64, 32, 4, 128, p_dropout=0.0, n_layer=2,
+                         attn_impl="flash",
+                         key=jax.random.PRNGKey(0)).eval()
+    t = list(np.random.default_rng(3).integers(1, 60, size=12))
+    eng = ContinuousBatchingEngine(model, max_batch=2, page_size=8,
+                                   pages_per_seq=4, dtype=jnp.float8_e4m3fn,
+                                   collect_logits=True)
+    r = eng.submit(t, 3)
+    eng.run()
+    want = np.asarray(model(jnp.asarray([t + r.generated[:-1]], jnp.int32))[0])
+    got = np.stack(r.logits)
+    assert got.shape == want.shape
+    rel = np.max(np.abs(got - want)) / np.max(np.abs(want))
+    assert rel < 0.1, rel
 
 
 def test_quantize_fp8_roundtrip():
@@ -162,47 +157,6 @@ def test_quantize_fp8_roundtrip():
     # e4m3 keeps ~2 significant digits; relative error bounded by ~6%
     err = jnp.max(jnp.abs(xq.dequantize() - x)) / jnp.max(jnp.abs(x))
     assert float(err) < 0.07
-
-
-def test_flash_attention_kv_fp8():
-    """fp8 payloads flow through the same quantised-KV kernel as int8."""
-    from flashattn_tpu.ops.quant import quantize_fp8
-
-    b, h, n, d = 1, 2, 128, 32
-    ks = jax.random.split(jax.random.PRNGKey(8), 3)
-    q = jax.random.normal(ks[0], (b, h, n, d))
-    k = jax.random.normal(ks[1], (b, h, n, d))
-    v = jax.random.normal(ks[2], (b, h, n, d))
-    kq, vq = quantize_fp8(k, axis=-1), quantize_fp8(v, axis=-1)
-    o, lse = flash_attention_kv_int8(q, kq, vq, True)
-    ref = flash_attention_reference(q, kq.dequantize(), vq.dequantize(), True)
-    np.testing.assert_allclose(o, ref, atol=5e-5, rtol=1e-3)
-    full = flash_attention_reference(q, k, v, True)
-    assert float(jnp.max(jnp.abs(o - full))) < 0.15
-
-
-def test_fp8_transcode_rides_int8_subrow():
-    """r5: fp8-stored caches at subrow-eligible shapes are requantized to
-    int8 (one elementwise pass) and ride the int8-MXU subrow dots — the
-    dispatch must stay within fp8's own storage error of the full-precision
-    oracle."""
-    from flashattn_tpu.ops.quant import quantize_fp8, requantize_fp8_to_int8
-
-    b, h, n, d = 1, 2, 1024, 128
-    ks = jax.random.split(jax.random.PRNGKey(12), 3)
-    q = jax.random.normal(ks[0], (b, h, n, d))
-    k = jax.random.normal(ks[1], (b, h, n, d))
-    v = jax.random.normal(ks[2], (b, h, n, d))
-    kq, vq = quantize_fp8(k, axis=-1), quantize_fp8(v, axis=-1)
-    o, lse = flash_attention_kv_int8(q, kq, vq, True)
-    assert bool(jnp.isfinite(o).all())
-    full = flash_attention_reference(q, k, v, True)
-    assert float(jnp.max(jnp.abs(o - full))) < 0.15
-    # the transcode itself is error-bounded by fp8 storage
-    ki = requantize_fp8_to_int8(kq)
-    assert ki.values.dtype == jnp.int8
-    err = jnp.max(jnp.abs(ki.dequantize() - kq.dequantize()))
-    assert float(err) < 0.05
 
 
 def test_fp8_weight_only_matmul():
@@ -232,7 +186,7 @@ class TestWeightOnlyModel:
         import flashattn_tpu as ft
 
         return ft.DecoderLM(64, 32, 4, 128, p_dropout=0.0, n_layer=2,
-                            attn_impl="reference",
+                            attn_impl="flash",
                             key=jax.random.PRNGKey(0)).eval()
 
     @pytest.mark.parametrize("dtype", [jnp.int8, jnp.float8_e4m3fn])

@@ -1,17 +1,13 @@
-"""Fused Pallas attention-softmax vs jnp oracle (mirrors reference
-kernel_tests/test_softmax_fw.py / _bw.py, without the to_len<=1024 cap)."""
+"""Masked attention softmax (the XLA-fused op) vs the jnp oracle (mirrors
+reference kernel_tests/test_softmax_fw.py / _bw.py, without the
+to_len<=1024 cap)."""
 
 import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 
-import functools
-
-from flashattn_tpu import attn_softmax as _attn_softmax, attn_softmax_reference
-
-# pin the Pallas kernel path: this file tests the hand-written kernel
-attn_softmax = functools.partial(_attn_softmax, impl="pallas")
+from flashattn_tpu import attn_softmax, attn_softmax_reference
 
 SHAPES = [(1, 2, 8, 16), (2, 4, 64, 96), (2, 2, 128, 128), (1, 1, 17, 33),
           (1, 2, 64, 2048)]  # last one exceeds the reference's 1024 cap

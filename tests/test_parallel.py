@@ -1,7 +1,7 @@
 """Multi-chip sharding tests on the 8-device virtual CPU mesh.
 
 The capability gap the reference lacks entirely (SURVEY.md §2.3): DP batch
-sharding, Megatron-style TP over heads/FFN, shard_map'd Pallas attention,
+sharding, Megatron-style TP over heads/FFN, shard_map'd attention kernels,
 and ring attention over a sequence axis.
 """
 

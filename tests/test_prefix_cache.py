@@ -16,7 +16,7 @@ V = 64
 @pytest.fixture(scope="module")
 def model():
     return ft.DecoderLM(V, 32, 4, 512, p_dropout=0.0, n_layer=2,
-                        attn_impl="reference",
+                        attn_impl="flash",
                         key=jax.random.PRNGKey(0)).eval()
 
 

@@ -39,7 +39,7 @@ def test_rope_scores_depend_on_relative_position_only():
 @pytest.fixture(scope="module")
 def rope_model():
     return ft.DecoderLM(64, 32, 4, 256, p_dropout=0.0, n_layer=2,
-                        pos_encoding="rope", attn_impl="reference",
+                        pos_encoding="rope", attn_impl="flash",
                         key=jax.random.PRNGKey(0)).eval()
 
 

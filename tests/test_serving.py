@@ -18,7 +18,7 @@ from flashattn_tpu.serving import ContinuousBatchingEngine
 @pytest.fixture(scope="module")
 def model():
     return ft.DecoderLM(64, 32, 4, 256, p_dropout=0.0, n_layer=2,
-                        attn_impl="reference", key=jax.random.PRNGKey(0)).eval()
+                        attn_impl="flash", key=jax.random.PRNGKey(0)).eval()
 
 
 def _dense_logits(model, tokens):
@@ -268,6 +268,27 @@ def test_sampling_temperature_and_topk(model):
         assert tok in topk, (tok, topk)
 
 
+def test_reference_model_serves_through_the_gather():
+    """attn_impl="reference" takes the XLA gather for paged decode and the
+    op graph for prefill; its engine logits equal the kernel route's."""
+    import flashattn_tpu as ft
+
+    logits = []
+    for impl in ("flash", "reference"):
+        model = ft.DecoderLM(64, 32, 4, 256, p_dropout=0.0, n_layer=2,
+                             n_kv_head=2, attn_impl=impl,
+                             key=jax.random.PRNGKey(4)).eval()
+        eng = ContinuousBatchingEngine(model, max_batch=2, page_size=4,
+                                       pages_per_seq=8, collect_logits=True,
+                                       prefill_chunk=8)
+        reqs = [eng.submit([3, 9, 1, 4, 4, 7, 2, 8, 5, 6, 1], 5),
+                eng.submit([2, 7, 1], 7)]
+        eng.run()
+        logits.append([np.stack(r.logits) for r in reqs])
+    for a, b in zip(*logits):
+        np.testing.assert_allclose(a, b, atol=2e-4, rtol=2e-4)
+
+
 class TestChunkedPrefill:
     """Long prompts stream through fixed-size extend waves; results must be
     indistinguishable from the single-dispatch prefill."""
@@ -276,7 +297,7 @@ class TestChunkedPrefill:
         import flashattn_tpu as ft
 
         return ft.DecoderLM(64, 32, 4, 512, p_dropout=0.0, n_layer=2,
-                            window=window, attn_impl="reference",
+                            window=window, attn_impl="flash",
                             key=jax.random.PRNGKey(0)).eval()
 
     def test_matches_dense_forward(self):
@@ -325,6 +346,30 @@ class TestChunkedPrefill:
                                             jnp.int32))[0])
         np.testing.assert_allclose(np.stack(r.logits), want,
                                    atol=2e-4, rtol=2e-4)
+
+    def test_final_wave_past_position_table(self):
+        """A model whose position table ends at the pool's capacity: the
+        final wave's padding runs past both, and its embedding lookups must
+        stay finite, or the NaN keys and values it writes poison every later
+        read of that page."""
+        import flashattn_tpu as ft
+
+        model = ft.DecoderLM(64, 32, 4, 32, p_dropout=0.0, n_layer=2,
+                             attn_impl="flash",
+                             key=jax.random.PRNGKey(0)).eval()
+        eng = ContinuousBatchingEngine(model, max_batch=2, page_size=4,
+                                       pages_per_seq=8, collect_logits=True,
+                                       prefill_chunk=16)
+        rng = np.random.default_rng(7)
+        reqs = [eng.submit(list(rng.integers(1, 60, 3)), 2),
+                eng.submit(list(rng.integers(1, 60, 28)), 2)]
+        eng.run()
+        for r in reqs:
+            full = r.prompt + r.generated
+            want = np.asarray(model(jnp.asarray([full[:len(r.logits)]],
+                                                jnp.int32))[0])
+            np.testing.assert_allclose(np.stack(r.logits), want,
+                                       atol=2e-4, rtol=2e-4)
 
     def test_uneven_waves_overflow_capacity(self):
         """Mixed prompt lengths make a final wave whose base + width pushes
@@ -695,7 +740,7 @@ def test_engine_gqa_model_matches_dense():
     paged pools are allocated at h_kv width and the decode/prefill kernels
     fold the query-head group — logits must equal the dense forward."""
     gqa = ft.DecoderLM(64, 32, 4, 256, p_dropout=0.0, n_layer=2,
-                       n_kv_head=2, attn_impl="reference",
+                       n_kv_head=2, attn_impl="flash",
                        key=jax.random.PRNGKey(3)).eval()
     trajectories = [[1, 5, 9, 11, 2], [3, 3, 7, 50, 1, 4, 8]]
     _assert_engine_matches_dense(gqa, trajectories, max_batch=2,

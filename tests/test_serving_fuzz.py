@@ -17,7 +17,7 @@ from flashattn_tpu.serving import ContinuousBatchingEngine
 @pytest.fixture(scope="module")
 def model():
     return ft.DecoderLM(64, 32, 4, 512, p_dropout=0.0, n_layer=2,
-                        attn_impl="reference", key=jax.random.PRNGKey(0)).eval()
+                        attn_impl="flash", key=jax.random.PRNGKey(0)).eval()
 
 
 def _dense_logits(model, tokens):

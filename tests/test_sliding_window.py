@@ -1,5 +1,5 @@
-"""Sliding-window (local causal) flash attention: kernel vs oracle, grads,
-model paths.  No reference equivalent (the reference caps context by memory;
+"""Sliding-window (local causal) flash attention: Triton kernels vs oracle,
+grads, model paths.  No reference equivalent (the reference caps context by memory;
 windowed attention makes compute AND KV traffic O(seq * window))."""
 
 import functools
@@ -15,7 +15,7 @@ from flashattn_tpu.ops.flash_attention import (
     flash_attention_reference,
 )
 
-flash = functools.partial(_flash, impl="pallas")
+flash = functools.partial(_flash, impl="triton")
 
 
 def _qkv(b, h, n, d, seed=0):
@@ -119,13 +119,13 @@ def test_model_window_impls_agree():
                                    atol=2e-5, rtol=1e-4, err_msg=impl)
 
 
-@pytest.mark.parametrize("pipelined", [True, False])
-def test_paged_decode_window(pipelined):
+@pytest.mark.parametrize("page", [8, 16])
+def test_paged_decode_window(page):
     from flashattn_tpu.ops.paged_attention import (
         paged_attention, paged_attention_reference)
 
     key = jax.random.PRNGKey(0)
-    b, h, d, page, pps = 3, 2, 128, 8, 6
+    b, h, d, pps = 3, 2, 128, 48 // page
     n_pages = b * pps
     q = jax.random.normal(key, (b, h, d))
     kp = jax.random.normal(jax.random.PRNGKey(1), (h, n_pages, page, d))
@@ -134,7 +134,7 @@ def test_paged_decode_window(pipelined):
     lengths = jnp.asarray([45, 8, 33], jnp.int32)
     for window in (16, 5, 100):
         got = paged_attention(q, kp, vp, lengths, table, window=window,
-                              pipelined=pipelined)
+                              impl="triton")
         want = paged_attention_reference(q, kp, vp, lengths, table,
                                          window=window)
         np.testing.assert_allclose(got, want, atol=2e-5, rtol=1e-4,
@@ -146,7 +146,7 @@ def test_varlen_window_kernel():
 
     q, k, v = _qkv(2, 2, 256, 32, seed=5)
     lens = jnp.asarray([256, 100], jnp.int32)
-    got = flash_attention_varlen(q, k, v, lens, True, impl="pallas",
+    got = flash_attention_varlen(q, k, v, lens, True, impl="triton",
                                  window=48)
     # oracle: dense per-row window+causal+prefix mask
     n = 256
@@ -170,7 +170,7 @@ def test_windowed_engine_matches_dense_forward():
     from flashattn_tpu.serving import ContinuousBatchingEngine
 
     model = ft.DecoderLM(64, 32, 4, 256, p_dropout=0.0, n_layer=2,
-                         window=8, attn_impl="reference",
+                         window=8, attn_impl="flash",
                          key=jax.random.PRNGKey(0)).eval()
     eng = ContinuousBatchingEngine(model, max_batch=2, page_size=4,
                                    pages_per_seq=8, collect_logits=True)
@@ -192,7 +192,7 @@ def test_rolling_buffer_frees_pages_behind_window():
     from flashattn_tpu.serving import ContinuousBatchingEngine
 
     model = ft.DecoderLM(64, 32, 4, 256, p_dropout=0.0, n_layer=2,
-                         window=8, attn_impl="reference",
+                         window=8, attn_impl="flash",
                          key=jax.random.PRNGKey(0)).eval()
     # full history = 12 prompt + 30 generated = 42 tokens = 11 pages of 4;
     # pool has only 8 — impossible without releasing behind the window
@@ -224,8 +224,8 @@ def test_varlen_window_fully_masked_rows_multi_tile():
     lens = jnp.asarray([64, 33, 16], jnp.int32)
     win = 24
 
-    o_k = flash_attention_varlen(q, q, q, lens, True, impl="pallas",
-                                 block_q=16, block_k=16, window=win)
+    o_k = flash_attention_varlen(q, q, q, lens, True, impl="triton",
+                                 window=win)
     o_r = flash_attention_reference(q, q, q, True, kv_lengths=lens,
                                     window=win)
     np.testing.assert_allclose(np.asarray(o_k), np.asarray(o_r),
@@ -239,8 +239,7 @@ def test_varlen_window_fully_masked_rows_multi_tile():
 
     def loss_k(q, k, v):
         return jnp.sum(flash_attention_varlen(
-            q, k, v, lens, True, impl="pallas", block_q=16, block_k=16,
-            window=win) ** 2)
+            q, k, v, lens, True, impl="triton", window=win) ** 2)
 
     def loss_r(q, k, v):
         return jnp.sum(flash_attention_reference(
@@ -260,7 +259,7 @@ def test_window_engine_composes_with_prompt_lookup():
     from flashattn_tpu.serving import ContinuousBatchingEngine
 
     model = ft.DecoderLM(64, 32, 4, 256, p_dropout=0.0, n_layer=2,
-                         window=8, attn_impl="reference",
+                         window=8, attn_impl="flash",
                          key=jax.random.PRNGKey(5)).eval()
     prompt = [5, 9, 2, 5, 9, 2, 5, 9, 2]
     plain = ContinuousBatchingEngine(model, max_batch=1, page_size=4,

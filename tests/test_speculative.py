@@ -16,7 +16,7 @@ V = 64
 @pytest.fixture(scope="module")
 def target():
     return ft.DecoderLM(V, 32, 4, 512, p_dropout=0.0, n_layer=2,
-                        attn_impl="reference",
+                        attn_impl="flash",
                         key=jax.random.PRNGKey(0)).eval()
 
 
@@ -25,7 +25,7 @@ def draft():
     # a different (smaller) model: proposals only partially match, so the
     # acceptance logic is genuinely exercised
     return ft.DecoderLM(V, 16, 2, 512, p_dropout=0.0, n_layer=1,
-                        attn_impl="reference",
+                        attn_impl="flash",
                         key=jax.random.PRNGKey(7)).eval()
 
 
@@ -91,10 +91,10 @@ def test_speculative_with_rolling_window(draft):
     """Windowed target + draft: speculative, rolling release and the
     windowed kernels compose; output equals plain greedy."""
     wtarget = ft.DecoderLM(V, 32, 4, 512, p_dropout=0.0, n_layer=2,
-                           window=8, attn_impl="reference",
+                           window=8, attn_impl="flash",
                            key=jax.random.PRNGKey(1)).eval()
     wdraft = ft.DecoderLM(V, 16, 2, 512, p_dropout=0.0, n_layer=1,
-                          window=8, attn_impl="reference",
+                          window=8, attn_impl="flash",
                           key=jax.random.PRNGKey(8)).eval()
     prompts = [[3, 14, 15, 9, 2, 6], [27, 1, 8]]
     kw = dict(max_batch=2, page_size=4, pages_per_seq=8)

@@ -3,7 +3,7 @@
 The r1-r3 backward tables were voided because the timing chain threaded
 only ``out[0]`` of a multi-output function: the pallas call feeding the
 other outputs was dead code under jit and XLA deleted it (a row benched
-above the MXU roofline).  ``make_timing_loop`` now folds EVERY output leaf
+above the matmul roofline).  ``make_timing_loop`` now folds EVERY output leaf
 into the scan carry; these tests prove it by jaxpr inspection — the
 second output's compute must survive tracing.
 """
